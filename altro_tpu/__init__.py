@@ -1,4 +1,4 @@
-"""altro_tpu: TPU-native constrained trajectory optimization.
+"""altro_tpu: batched constrained trajectory optimization in JAX.
 
 A brand-new JAX/XLA/Pallas framework with the capabilities of the ALTRO
 ("Augmented Lagrangian TRajectory Optimizer") C++ reference solver:
@@ -8,7 +8,7 @@ differentiated merit function, and conic constraint handling
 (equality / inequality / second-order cone) via projected-dual
 augmented-Lagrangian penalties.
 
-Design is TPU-first:
+Design is accelerator-first:
   * struct-of-arrays pytrees over the knot-point axis (vmap, not loops)
   * `lax.scan` Riccati recursion and rollouts (parallel-scan variant in
     `altro_tpu.tvlqr`)
@@ -51,7 +51,6 @@ from altro_tpu.api import ALL_INDICES, ALTROSolver, LAST_INDEX
 from altro_tpu.diff import implicit_solve
 from altro_tpu.implicit import implicit_dynamics, implicit_midpoint_residual
 from altro_tpu.checkpoint import load_state, save_state
-from altro_tpu.platform import ensure_backend
 from altro_tpu.rescue import (
     rescue_options,
     solve_tiled_with_rescue,

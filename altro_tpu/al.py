@@ -1,7 +1,7 @@
 """Augmented-Lagrangian machinery: projected duals, AL cost / gradient /
 Gauss-Newton Hessian, constraint violations.
 
-TPU-native redesign of the per-knot AL computations in
+Batched redesign of the per-knot AL computations in
 /root/reference/src/altro/solver/knotpoint_data.cpp:473-613. Every
 function here operates on a single knot point and vmaps over the knot
 axis (and over batch lanes); inactive knots are masked with `jnp.where`

@@ -42,7 +42,6 @@ from altro_tpu.solver import (
     total_cost,
 )
 from altro_tpu.options import Verbosity
-from altro_tpu.platform import supports_host_callbacks
 from altro_tpu.status import AltroError, ErrorCode, SolveStatus
 
 __all__ = ["ALTROSolver", "LAST_INDEX", "ALL_INDICES"]
@@ -224,39 +223,23 @@ class ALTROSolver:
             self._dynamics_jac[k] = jacobian
         return self
 
-    def set_tile_dynamics(self, step_tile: Callable = None, *,
-                          step_cols: Callable = None):
-        """Opt-in tile-form dynamics steps for the trial-rollout Pallas
-        kernels (models/tile_steps.py protocols). Either/both of:
-
-        step_tile (Problem.dynamics_tile): step(x[S, n], u[S, m],
-        h[S, 1]) -> x_next[S, n], row-wise equal to the explicit
-        dynamics — the PACKED single-lane kernel's form (trials ride
-        sublanes; ops/pallas_rollout.py).
-
-        step_cols (Problem.dynamics_cols): step(x_cols, u_cols, h) on
-        tuples of per-component arrays — the BATCHED tiled kernel's
-        form (ops/pallas_rollout_tiled.py), used by the tile-resident
-        batched solve. Build both from one column-form physics fn:
-        step_cols = midpoint_cols(f_cols) and
-        step_tile = midpoint_tile(block_from_cols(f_cols)).
+    def set_tile_dynamics(self, step_cols: Callable):
+        """Column-form dynamics step for the tiled trial-rollout GPU
+        kernel (models/tile_steps.py protocol, Problem.dynamics_cols):
+        step(x_cols, u_cols, h) on tuples of per-component arrays,
+        component-wise equal to the explicit dynamics. Build it from
+        column-form physics, e.g. step_cols = midpoint_cols(f_cols).
 
         With a diagonal cost and (if any) affine NEGATIVE_ORTHANT
         constraint groups — which the bound setters declare
-        automatically — TPU f32 solves run the whole line-search trial
-        grid inside one Pallas program (single-lane via step_tile,
-        batched tile-resident via step_cols). No reference analog (the
-        fast path itself is TPU-native)."""
-        if step_tile is not None:
-            self._dynamics_tile = step_tile
-        if step_cols is not None:
-            self._dynamics_cols = step_cols
+        automatically — a tile-resident batched solve of this problem on
+        a GPU runs the whole line-search trial grid in one kernel
+        (ops/pallas_rollout_tiled.py). No reference analog."""
+        self._dynamics_cols = step_cols
         if self._problem is not None:
             # already initialized: swap in place, keep the carried state
             self._problem = dataclasses.replace(
-                self._problem,
-                dynamics_tile=getattr(self, "_dynamics_tile", None),
-                dynamics_cols=getattr(self, "_dynamics_cols", None))
+                self._problem, dynamics_cols=step_cols)
             self._solve_fn = None
         return self
 
@@ -460,8 +443,8 @@ class ALTROSolver:
             ConstraintSpec(fn=fn, cone=Cone.NEGATIVE_ORTHANT, dim=2 * dim,
                            active=jnp.asarray(active), label=label,
                            # Jacobian rows are +-e_i: diagonal AL Hessian
-                           # AND affine — rides the packed trial-rollout
-                           # kernel's in-kernel AL term (pallas_rollout)
+                           # AND affine — rides the tiled trial-rollout
+                           # kernel's in-kernel AL term
                            diag_hessian=True, affine=True)
         )
         return self
@@ -627,7 +610,6 @@ class ALTROSolver:
             N=self.N, n=self.n, m=self.m, dynamics=dyn, dynamics_jac=jac,
             constraints=tuple(self._constraints), cost=self._build_cost(),
             h=jnp.asarray(self._h, self.dtype), x0=jnp.asarray(self._x0, self.dtype),
-            dynamics_tile=getattr(self, "_dynamics_tile", None),
             dynamics_cols=getattr(self, "_dynamics_cols", None),
         )
         self._state = init_state(self._problem)
@@ -702,30 +684,6 @@ class ALTROSolver:
                           self._state.z, self._state.rho)
         )
 
-    def _print_host_summary(self) -> None:
-        """Host-side post-solve summary for backends without host-callback
-        support (where the in-jit `jax.debug.print` verbosity tiers degrade
-        to no-ops — see altro_tpu.platform.debug_print). Prints the same
-        epilogue the reference prints (solver.cpp:507-509) plus the final
-        iterate stats, so `verbose > SILENT` is never silent."""
-        if self._opts.verbose <= Verbosity.SILENT or supports_host_callbacks():
-            return
-        s = self._stats
-        print(
-            "ALTRO SOLVE FINISHED! iterations = {}, status = {} "
-            "(host-side summary: backend lacks host callbacks)".format(
-                int(s.iterations), SolveStatus(int(s.status)).name
-            )
-        )
-        print(
-            "  objective = {:.6g}, merit = {:.6g}, stat = {:.4g}, "
-            "feas = {:.4g}, rho = {:.3g}, alpha = {:.4g}".format(
-                float(s.objective_value), float(s.merit_value),
-                float(s.stationarity), float(s.primal_feasibility),
-                float(s.rho), float(s.alpha),
-            )
-        )
-
     def solve(self) -> SolveStatus:
         self._require_init()
         if self._solve_fn is None:
@@ -739,7 +697,6 @@ class ALTROSolver:
         self._state = state
         self._stats = stats
         status = SolveStatus(int(stats.status))
-        self._print_host_summary()
         if self._opts.throw_errors and status not in _BENIGN_STATUSES:
             raise AltroError(
                 _STATUS_ERROR_CODES.get(status, ErrorCode.LINE_SEARCH_FAILED),
@@ -817,7 +774,6 @@ class ALTROSolver:
             status=jnp.asarray(int(status), jnp.int32),
             iterations=jnp.asarray(total_iters, jnp.int32),
         )
-        self._print_host_summary()
         if self._opts.throw_errors and status not in _BENIGN_STATUSES:
             raise AltroError(
                 _STATUS_ERROR_CODES.get(status, ErrorCode.LINE_SEARCH_FAILED),

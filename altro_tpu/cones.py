@@ -1,6 +1,6 @@
 """Conic projections, Jacobians, and Hessian-vector Jacobians.
 
-TPU-native re-design of the reference cone module
+Batched re-design of the reference cone module
 (/root/reference/src/altro/solver/cones.cpp:13-202): instead of the
 reference's 3-way branch on the SOC region, every projection here is a
 branchless `jnp.where` composition so it vmaps over knot points and batch

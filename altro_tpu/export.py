@@ -4,7 +4,7 @@ The reference ships its solver to embedded targets by packaging sources
 for the Arduino toolchain (install/AltroArduinoInstall.cmake,
 resources/arduino_package_template/) — "deployment" there means a
 self-contained artifact that runs without the development environment.
-The TPU-native equivalent is an ahead-of-time **exported computation**:
+The JAX equivalent is an ahead-of-time **exported computation**:
 `jax.export` serializes the fully-lowered StableHLO of the batched
 warm-started MPC step (altro_tpu.mpc.mpc_step vmapped over scenario
 lanes) into portable bytes that a serving process deserializes and calls
@@ -112,39 +112,15 @@ def export_mpc_server(
 ) -> jax_export.Exported:
     """Lower + export the batched MPC step for the given platforms.
 
-    platforms defaults to ("tpu", "cpu"): one artifact serves on TPU and
-    falls back to host CPU. The problem definition (dynamics, horizon,
-    constraints) and SolverOptions are baked in as compile-time
-    constants, exactly like the reference's statically-sized embedded
-    builds (tvlqr_TotalMemSize sizing, tvlqr.cpp:18-63).
+    platforms defaults to ("cuda", "cpu"): one artifact serves on an
+    NVIDIA GPU and falls back to host CPU. The problem definition
+    (dynamics, horizon, constraints) and SolverOptions are baked in as
+    compile-time constants, exactly like the reference's
+    statically-sized embedded builds (tvlqr_TotalMemSize sizing,
+    tvlqr.cpp:18-63). The exported step is plain XLA (vmap(solve)), so
+    it lowers for any platform from any host.
     """
-    plats = tuple(platforms) if platforms is not None else ("tpu", "cpu")
-    if any(p != "tpu" for p in plats):
-        # The single-lane latency kernel dispatches at trace time from the
-        # process default backend; a multi-platform artifact would bake a
-        # TPU-only Mosaic call into the CPU lowering. Force the portable
-        # scan path for any non-TPU target platform (TPU-only artifacts —
-        # e.g. the B=1 latency config — keep the packed kernel).
-        opts = dataclasses.replace(opts, pallas_latency_backward=False)
-    elif opts.pallas_latency_backward:
-        # TPU-only artifact: the latency kernel's dispatch is decided at
-        # TRACE time from the process default backend, so exporting from
-        # a CPU-backed host silently bakes the scan path into an
-        # artifact whose platforms=('tpu',) promises the kernel. Surface
-        # that instead of letting it pass silently (ADVICE r3).
-        from altro_tpu.ops.packed_backward import _on_tpu
-
-        if not _on_tpu():
-            import warnings
-
-            warnings.warn(
-                "export_mpc_server(platforms=('tpu',)): tracing on a "
-                "non-TPU process — the packed latency kernel will NOT be "
-                "in the artifact (trace-time dispatch falls back to the "
-                "scan). Export from a TPU-backed process to keep it.",
-                RuntimeWarning,
-                stacklevel=2,
-            )
+    plats = tuple(platforms) if platforms is not None else ("cuda", "cpu")
     fn = jax.jit(make_serving_fn(problem, opts, batch))
     args = _example_args(problem, batch)
     return jax_export.export(fn, platforms=plats)(*args)

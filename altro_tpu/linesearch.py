@@ -1,6 +1,6 @@
 """Strong-Wolfe cubic line search as a bounded `lax.while_loop`.
 
-TPU-native redesign of the reference line-search module
+Batched redesign of the reference line-search module
 (/root/reference/src/linesearch/linesearch.cpp:37-412 and
 cubicspline.c:18-246). The reference's data-dependent control flow
 (bracketing loop, zoom loop, one-shot cubic interpolation, simple
@@ -21,7 +21,6 @@ from typing import Callable, NamedTuple, Optional
 import jax
 import jax.numpy as jnp
 
-from altro_tpu.platform import debug_print
 from altro_tpu.status import LineSearchCode
 
 __all__ = [
@@ -505,7 +504,7 @@ def wolfe_line_search(
         phi_t = jnp.asarray(phi_t, dtype)
         dphi_t = jnp.asarray(dphi_t, dtype)
         if opts.verbose:  # linesearch.cpp:70-73 trial trace
-            debug_print(
+            jax.debug.print(
                 "    ls trial {i}: alpha = {a:.6}, phi = {p:.8}, dphi = {d:.6}",
                 i=s.n_iters, a=s.alpha_next, p=phi_t, d=dphi_t,
             )
@@ -519,7 +518,7 @@ def wolfe_line_search(
         )
 
     if opts.verbose:  # linesearch.cpp:70-73 start banner
-        debug_print(
+        jax.debug.print(
             "  Starting Cubic Line Search with phi0 = {p0:.8}, dphi0 = {d0:.6}",
             p0=phi0, d0=dphi0,
         )
@@ -554,7 +553,7 @@ def parallel_backtracking_search(
 ) -> LineSearchResult:
     """Backtracking line search with ALL trial steps evaluated at once.
 
-    TPU-native redesign of the sequential backtracking mode
+    Batched redesign of the sequential backtracking mode
     (linesearch.cpp:385-412): instead of trying alpha0, alpha0*beta,
     alpha0*beta^2, ... one merit rollout at a time, evaluate the whole
     geometric trial grid in a single batched (vmap-over-alpha) merit
@@ -563,8 +562,8 @@ def parallel_backtracking_search(
     predicate clears, so with B lanes in lockstep one straggler lane
     needing k trials makes all B lanes pay k sequential merit rollouts.
     Here the sequential depth is exactly one merit rollout regardless of
-    k (the grid dimension rides the batch/vector axis, where the TPU has
-    slack at these model sizes).
+    k (the grid dimension rides the batch/vector axis, where the device
+    has slack at these model sizes).
 
     Accepted-step parity with the sequential mode (ls_try_cubic_first
     False): alpha0 is accepted on Armijo+strong-Wolfe (bracket_step
@@ -611,7 +610,7 @@ def parallel_backtracking_search(
             opts.armijo_slack, dtype
         ) * jnp.abs(phi0)
         if opts.verbose:  # batched analog of the per-trial trace
-            debug_print(
+            jax.debug.print(
                 "    ls grid block {b}: alphas = {a}, phis = {p} (phi0 = {p0:.8})",
                 b=block, a=alphas, p=phis, p0=phi0,
             )
@@ -678,7 +677,6 @@ def parallel_backtracking_search_split(
     width: int = 8,
     armijo_only: bool = False,
     reconstruct: Optional[Callable] = None,
-    merit_grid: Optional[Callable] = None,
     best_decrease_fallback: bool = False,
 ) -> LineSearchResult:
     """Phase-split variant of `parallel_backtracking_search`.
@@ -713,12 +711,6 @@ def parallel_backtracking_search_split(
     selection. The grid then materializes width x [N+1, n] states instead
     of width x the full (x, u, y, convals, zproj) stacks — everything but
     phi and x is a per-knot pure function of the state trajectory.
-
-    merit_grid (optional): a whole-grid evaluator
-    `merit_grid(alphas[width]) -> (phis[width], carriers)` used instead
-    of `vmap(merit_value)` — the hook for the packed trial-rollout
-    Pallas kernel (ops/pallas_rollout.py), which evaluates all width
-    trials in ONE kernel program with the trials riding the sublanes.
     """
     dtype = jnp.asarray(phi0).dtype
     if not jnp.issubdtype(dtype, jnp.floating):
@@ -736,12 +728,8 @@ def parallel_backtracking_search_split(
         phi_t, light = merit_value(a)
         return jnp.asarray(phi_t, dtype), light
 
-    if merit_grid is None:
-        eval_grid = lambda alphas: jax.vmap(eval_one)(alphas)
-    else:
-        def eval_grid(alphas):
-            phis, lights = merit_grid(alphas)
-            return jnp.asarray(phis, dtype), lights
+    def eval_grid(alphas):
+        return jax.vmap(eval_one)(alphas)
 
     def armijo_mask(alphas, phis):
         return phis <= phi0 + c1 * alphas * dphi0 + slack * jnp.abs(phi0)
@@ -753,7 +741,7 @@ def parallel_backtracking_search_split(
     phis0, lights0 = eval_grid(alphas0)
     armijo0 = armijo_mask(alphas0, phis0)
     if opts.verbose:  # batched analog of the per-trial trace
-        debug_print(
+        jax.debug.print(
             "    ls grid block 0: alphas = {a}, phis = {p} (phi0 = {p0:.8})",
             a=alphas0, p=phis0, p0=phi0,
         )
@@ -808,7 +796,7 @@ def parallel_backtracking_search_split(
             phis, lights = eval_grid(alphas)
             passes = armijo_mask(alphas, phis)
             if opts.verbose:
-                debug_print(
+                jax.debug.print(
                     "    ls grid block {b}: alphas = {a}, phis = {p}",
                     b=block_c, a=alphas, p=phis,
                 )

@@ -6,24 +6,20 @@ State [pos(3), rpy(3), vel(3), omega(3)] with Euler roll-pitch-yaw
 attitude; input = 4 rotor thrusts. Small-angle-free formulation using the
 ZYX rotation matrix.
 
-TPU note: the model is written in SCALAR form — unpack the state into
+Design note: the model is written in SCALAR form — unpack the state into
 scalar components, compute each derivative as a scalar expression, stack
 once at the end — rather than composing [3, 3] rotation/rate matrices.
-Under `vmap`, matrix-form intermediates become [B, 3, 3] arrays whose
-trailing dims pad to the (8, 128) f32 tile, i.e. ~3% memory/compute
-density; the scalar form keeps every intermediate a dense [B] array.
-Measured on 30720 points (1 TPU v5e chip): one f eval 0.906 ms -> 0.013
-ms, the vmapped RK4 trajectory expansion (the dominant component of the
-batched quadrotor resolve) 3.45 ms -> 0.31 ms at B=1024.
+Under `vmap`, matrix-form intermediates become [B, 3, 3] arrays with
+tiny trailing dims; the scalar form keeps every intermediate a dense
+[B] array, and it is also what the column-form step of the tiled rollout
+kernel needs (models/tile_steps.quadrotor_cols).
 
 `quadrotor_jacobians` additionally provides the analytic continuous-time
 (df/dx, df/du) in the same scalar form — an independent correctness
 oracle for the model (tests/test_models_extra.py) and the right form for
-host/native (CPU) solvers. On TPU, `jax.jacfwd` of the scalar-form model
-measured FASTER than chaining these analytically through RK4 (1.26 ms vs
-6.8 ms at 30720 points): the chain's batched 12x12 matmuls pad their
-trailing dims to the (8, 128) tile, while jacfwd's tangent axis fuses
-into the stage evaluations. Use jacfwd on TPU.
+host/native (CPU) solvers. The batched solver uses `jax.jacfwd` of the
+scalar-form model, whose tangent axis fuses into the stage evaluations
+instead of chaining batched 12x12 products through RK4.
 """
 
 from __future__ import annotations

@@ -1,42 +1,23 @@
-"""Tile-form dynamics steps for the trial-rollout Pallas kernels.
+"""Column-form dynamics steps for the tiled trial-rollout GPU kernel.
 
-The packed rollout kernel (ops/pallas_rollout.py) runs the line-search
-trial-grid rollout — the solver's remaining sequential chain — inside
-ONE Pallas program, with the W trial step sizes riding the 8 sublanes
-of each (8, 128) tile. The BATCHED tiled rollout kernel
-(ops/pallas_rollout_tiled.py) runs the same grid for 1024 lanes per
-(8, 128) tile with state components as separate tiles. Both need the
-model dynamics evaluated on tile operands; the physics is written ONCE
-here in COLUMN form and adapted to each kernel's layout:
+The tiled rollout kernel (ops/pallas_rollout_tiled.py) runs the
+line-search trial grid of a batched solve inside one program per block
+of lanes, with each state/input component a separate lane vector. It
+needs the model dynamics evaluated on such per-component operands; the
+physics is written here in COLUMN form: `f(x_cols, u_cols)` where
+x_cols / u_cols are tuples of broadcast-compatible arrays (one per
+state/input component) returning a tuple of components. Discrete steps
+take `(x_cols, u_cols, h)` with h broadcast-compatible. Compose
+continuous column dynamics with `midpoint_cols` / `rk4_cols`.
 
-  * column form (the source of truth): `f(x_cols, u_cols)` where
-    x_cols / u_cols are tuples of broadcast-compatible arrays (one per
-    state/input component — (8, 128) lane tiles in the batched kernel,
-    (S, 1) columns in the packed kernel) returning a tuple of
-    components. Discrete steps take `(x_cols, u_cols, h)` with h
-    broadcast-compatible. Compose continuous column dynamics with
-    `midpoint_cols` / `rk4_cols`.
-  * block form (the packed kernel's protocol, kept for back-compat):
-    `step(x_tile, u_tile, h_col)` on (S, n)/(S, m)/(S, 1) blocks whose
-    rows are independent trial lanes and whose lanes are components.
-    `block_from_cols` / `block_step_from_cols` derive it from the
-    column form via masked-reduce extraction (`comp`) and one-hot
-    assembly (`place`).
+Writing rules: only elementwise jnp ops and transcendentals the Pallas
+Triton lowering supports (sin, cos, tan, sqrt, rsqrt, ...); no
+reductions, gathers or reshapes — each component is one lane vector.
 
-Writing rules (Mosaic lowering, same lessons as ops/pallas_packed.py's
-docstring): only jnp elementwise ops / transcendentals that Mosaic
-lowers (sin, cos, tan, rsqrt, ...) — NO arctan/arctan2 (no lowering;
-see bicycle_cols for the exact triangle-identity replacement). In block
-form, extract components with MASKED ROW-REDUCES (`comp` — a plain
-lane slice keeps a nonzero lane offset that `vector.broadcast`
-refuses), assemble with one-hot lane masks (`place`), keep everything
-2-D.
-
-The protocol: `Problem.dynamics_tile` holds the block step,
-`Problem.dynamics_cols` the column step; both equal (to f32 roundoff)
-`problem.dynamics(x, u, h, k)` component-wise. Parity:
-tests/test_pallas_rollout.py checks each zoo step against the per-lane
-dynamics under vmap.
+The protocol: `Problem.dynamics_cols` holds the column step, equal (to
+f32 roundoff) to `problem.dynamics(x, u, h, k)` component-wise —
+tests/test_pallas_rollout_tiled.py checks each zoo step against the
+per-lane dynamics under vmap.
 """
 
 from __future__ import annotations
@@ -45,64 +26,13 @@ import jax
 import jax.numpy as jnp
 
 __all__ = [
-    "comp",
-    "place",
-    "block_from_cols",
-    "block_step_from_cols",
     "midpoint_cols",
     "rk4_cols",
-    "midpoint_tile",
-    "rk4_tile",
     "bicycle_cols",
     "double_integrator_cols",
     "pendulum_cols",
     "quadrotor_cols",
-    "bicycle_tile",
-    "double_integrator_tile",
-    "pendulum_tile",
-    "quadrotor_tile",
 ]
-
-
-def comp(x, i):
-    """Column i of a tile as an (S, 1) broadcast-safe column (masked
-    row-reduce normalizes the lane offset/layout)."""
-    w = x.shape[-1]
-    io = jax.lax.broadcasted_iota(jnp.int32, (1, w), 1)
-    return jnp.sum(jnp.where(io == i, x, 0.0), axis=1, keepdims=True)
-
-
-def place(cols, n):
-    """Assemble an (S, n) tile from a list of (S, 1) columns."""
-    io = jax.lax.broadcasted_iota(jnp.int32, (1, n), 1)
-    out = cols[0] * (io == 0).astype(cols[0].dtype)
-    for i in range(1, n):
-        out = out + cols[i] * (io == i).astype(cols[i].dtype)
-    return out
-
-
-def block_from_cols(f_cols):
-    """Column-form CONTINUOUS dynamics -> block form f(x[S,n], u[S,m])."""
-
-    def f(x, u):
-        xc = tuple(comp(x, i) for i in range(x.shape[-1]))
-        uc = tuple(comp(u, j) for j in range(u.shape[-1]))
-        out = f_cols(xc, uc)
-        return place(list(out), len(out))
-
-    return f
-
-
-def block_step_from_cols(step_cols):
-    """Column-form DISCRETE step -> block form step(x, u, h)."""
-
-    def step(x, u, h):
-        xc = tuple(comp(x, i) for i in range(x.shape[-1]))
-        uc = tuple(comp(u, j) for j in range(u.shape[-1]))
-        out = step_cols(xc, uc, h)
-        return place(list(out), len(out))
-
-    return step
 
 
 def midpoint_cols(f):
@@ -134,29 +64,6 @@ def rk4_cols(f):
     return step
 
 
-def midpoint_tile(f):
-    """Explicit midpoint on (S, n) block operands (packed-kernel form)."""
-
-    def step(x, u, h):
-        xm = x + 0.5 * h * f(x, u)
-        return x + h * f(xm, u)
-
-    return step
-
-
-def rk4_tile(f):
-    """Classic RK4 on (S, n) block operands (packed-kernel form)."""
-
-    def step(x, u, h):
-        k1 = f(x, u)
-        k2 = f(x + 0.5 * h * k1, u)
-        k3 = f(x + 0.5 * h * k2, u)
-        k4 = f(x + h * k3, u)
-        return x + (h / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
-
-    return step
-
-
 def bicycle_cols(frame="cog", length=2.7, rear=1.5):
     """Column form of models.bicycle.bicycle_continuous (all 3 frames)."""
 
@@ -164,9 +71,9 @@ def bicycle_cols(frame="cog", length=2.7, rear=1.5):
         v, delta_dot = u[0], u[1]
         theta, delta = x[2], x[3]
         if frame in ("cog", "CENTER_OF_GRAVITY"):
-            # beta = atan(rear*delta / length), but Mosaic has no atan
-            # lowering — and none is needed: only cos(beta)/sin(beta)
-            # appear, which the triangle identity gives EXACTLY:
+            # beta = atan(rear*delta / length) — not needed: only
+            # cos(beta)/sin(beta) appear, which the triangle identity
+            # gives EXACTLY (and with cheaper ops than atan + cos/sin):
             #   cos(beta) = L / hyp,  sin(beta) = rear*delta / hyp,
             #   hyp = sqrt(L^2 + (rear*delta)^2);
             # cos/sin(theta + beta) expand by the angle-sum formulas.
@@ -190,11 +97,6 @@ def bicycle_cols(frame="cog", length=2.7, rear=1.5):
     return f
 
 
-def bicycle_tile(frame="cog", length=2.7, rear=1.5):
-    """Block form of models.bicycle.bicycle_continuous (all 3 frames)."""
-    return block_from_cols(bicycle_cols(frame, length, rear))
-
-
 def double_integrator_cols(dim=2):
     """Column form of models.double_integrator.double_integrator_dynamics —
     that model is an EXACT DISCRETE step, so this returns a
@@ -213,11 +115,6 @@ def double_integrator_cols(dim=2):
     return step
 
 
-def double_integrator_tile(dim=2):
-    """Block form of the exact double-integrator discrete step."""
-    return block_step_from_cols(double_integrator_cols(dim))
-
-
 def pendulum_cols(mass=1.0, length=0.5, b=0.1, g=9.81):
     """Column form of models.pendulum.pendulum_continuous."""
 
@@ -230,11 +127,6 @@ def pendulum_cols(mass=1.0, length=0.5, b=0.1, g=9.81):
         return (omega, alpha)
 
     return f
-
-
-def pendulum_tile(mass=1.0, length=0.5, b=0.1, g=9.81):
-    """Block form of models.pendulum.pendulum_continuous."""
-    return block_from_cols(pendulum_cols(mass, length, b, g))
 
 
 def quadrotor_cols(mass=0.5, gravity=9.81, arm=0.1750, kf=1.0, km=0.0245,
@@ -274,10 +166,3 @@ def quadrotor_cols(mass=0.5, gravity=9.81, arm=0.1750, kf=1.0, km=0.0245,
         return (vx, vy, vz, rd, pd, yd, ax, ay, az, wdx, wdy, wdz)
 
     return f
-
-
-def quadrotor_tile(mass=0.5, gravity=9.81, arm=0.1750, kf=1.0, km=0.0245,
-                   inertia=(0.0023, 0.0023, 0.004)):
-    """Block form of models.quadrotor.quadrotor_continuous."""
-    return block_from_cols(
-        quadrotor_cols(mass, gravity, arm, kf, km, inertia))

@@ -1,7 +1,7 @@
 """ctypes bindings for the native C++ runtime (native/altro_native.cpp).
 
 The native kernel is the latency-critical single-solve host path — the
-TPU framework's counterpart to the reference's embedded deployment
+JAX framework's counterpart to the reference's embedded deployment
 target. The shared library is built on demand with g++ (no pybind11 in
 this image; plain C ABI + ctypes).
 """

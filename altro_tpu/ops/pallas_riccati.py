@@ -1,169 +1,86 @@
-"""Pallas TPU kernel: fused batched Riccati backward pass.
+"""GPU kernel (Pallas through Triton): tiled batched Riccati backward pass.
 
-The BASELINE.json north star asks for Pallas kernels for the per-knot
-block factorizations (Quu Cholesky + gain solves). This kernel goes
-further and fuses the ENTIRE backward pass for a batch of lanes into a
-single kernel launch:
+The plain twin is ops/tile_iter.riccati_backward_tiled (`tvlqr_backward`
+lifted onto the lane-tile layout), which XLA compiles into a while loop
+of small fusions — one launch or more per knot. This kernel runs the
+whole N-knot recursion of a block of lanes in ONE program:
 
-  * layout: every matrix entry is an (8, 128) float32 tile of batch
-    lanes — so all per-knot algebra (small GEMMs, the unrolled Cholesky,
-    the gain solves) runs as full-width VPU ops with zero library calls;
-  * the horizon recursion runs as a sequential grid over knots with the
-    cost-to-go carry (P, p) resident in VMEM scratch; per-knot operand
-    blocks stream HBM→VMEM (auto double-buffered by the Pallas TPU
-    pipeline), so VMEM use is O(n^2 * tile) independent of N — this is
-    what lets the kernel scale past the reference's n=4 blocks to the
-    quadrotor's n=12 (the whole-horizon-resident layout exceeds the
-    16 MB scoped-VMEM budget there);
-  * Cholesky failure is tracked per lane (an (8, 128) flag tile), so a
-    diverged lane cannot poison the batch — same contract as
-    `tvlqr_backward`.
+  * layout: operands arrive as [Bt, N, entry..., 8, 128] lane tiles, so
+    one per-knot matrix entry of a block of lanes is one contiguous row
+    and every load coalesces;
+  * one program per block of LANES_PER_PROGRAM lanes (one lane per
+    thread); the grid is (Bt, 8, 128 / LANES_PER_PROGRAM);
+  * the knot loop runs inside the program with the cost-to-go carry
+    (P, p) in registers; the knot axis stays out of the block shape
+    (Triton block shapes are powers of two) and is indexed in the loop;
+  * Cholesky failure is tracked per lane, so a diverged lane cannot
+    poison the batch — same contract as `tvlqr_backward`.
 
-Batches larger than one 1024-lane tile run as a second (sequential)
-grid dimension; the carry scratch re-initializes at knot 0 of each tile.
+Per-operand structure flags cut memory traffic: `with_lux=False` drops
+the cross-Hessian and `diag_cost=True` loads lxx/luu as diagonals — the
+reference's `is_diag` fast path (tvlqr.cpp:85-89,125-128).
 
-Two operand layouts are supported (same kernel, different BlockSpecs):
-
-  * batch-major (`riccati_backward_pallas`): plain [B, N, ...] arrays.
-    The wrapper relayouts them to lane tiles — measured to cost as much
-    as the recursion itself at headline scale (docs/PERF.md: the
-    batch-major -> batch-minor transpose of ~23 MB of operands
-    reproduces the whole kernel cost).
-  * batch-trailing tiled (`riccati_backward_pallas_bt`): operands arrive
-    already shaped [N, ..., Bt, 8, 128] (knot-leading, lane-tile
-    trailing) and outputs are returned in the same layout — ZERO
-    relayout on either side. This is the tile-resident path: the
-    solver's expansion producers emit lane-tile arrays directly and the
-    per-iteration data never changes layout (docs/PERF.md round-2 plan).
-
-Per-operand structure flags further cut HBM traffic on the tiled path:
-`with_f=False` drops the affine dynamics term (always zero inside the
-solver — dyn_expansion zeroes it), `with_lux=False` drops the
-cross-Hessian, and `diag_cost=True` streams lxx/luu as diagonals
-([.., n, ..] instead of [.., n, n, ..]) — the reference's `is_diag`
-fast path (tvlqr.cpp:85-89,125-128) in lane-tile form.
-
-Kernel structure follows /opt/skills/guides/pallas_guide.md; the math is
-the recursion of altro_tpu.tvlqr.tvlqr_backward (== reference
-tvlqr.cpp:124-191).
+The math is the recursion of altro_tpu.tvlqr.tvlqr_backward
+(== reference tvlqr.cpp:124-191), with the cost-to-go update in its
+Cholesky-identity form (symmetric by construction).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-__all__ = [
-    "riccati_backward_pallas",
-    "riccati_backward_pallas_tiled",
-    "BATCH_TILE",
-    "batch_to_tiles",
-    "tiles_to_batch",
-]
+from altro_tpu.ops.tile_iter import TiledGains
+from altro_tpu.ops.tiles import LANE, SUB
 
-SUB, LANE = 8, 128
-BATCH_TILE = SUB * LANE  # 1024 lanes per batch tile
+__all__ = ["riccati_backward_pallas_tiled", "LANES_PER_PROGRAM"]
+
+# Lanes per program (one lane per thread). Power of two dividing 128.
+LANES_PER_PROGRAM = 128
 
 
-def _pick_chunk(N: int, tiles_per_knot: int, interpret: bool = False) -> int:
-    """Knots per grid step: amortize the ~2.5 us Mosaic grid-step
-    overhead (dominant at 1 knot/step: chunking measured the tiled
-    backward 169.6 -> 74.3 us at B=2048/N=30, scripts/roofline.py round
-    5) against the streamed block size — cap so one double-buffered
-    chunk stays under ~4 MB of VMEM per side. Override:
-    ALTRO_TILED_CHUNK. Interpret mode defaults to 1 (the interpreter
-    pays minutes compiling the unrolled multi-knot body; the chunked
-    path is covered by the on-device parity tests and a small
-    interpret case with an explicit override)."""
-    import os
+def _kernel(n, m, N, diag_cost, with_lux, *refs):
+    """One program = one block of lanes, all N knots, backward.
 
-    default = "1" if interpret else "6"
-    cap = int(os.environ.get("ALTRO_TILED_CHUNK", default))
-    vmem_cap = max(1, int(4e6 // (tiles_per_knot * SUB * LANE * 4)))
-    for c in (6, 5, 4, 3, 2):
-        if c <= min(cap, vmem_cap) and N % c == 0:
-            return c
-    return 1
-
-
-def _kernel(n, m, N, C, diag_cost, with_f, with_lux, symmetrize, *refs):
-    """One grid step = one CHUNK of C knots of one batch tile, processed
-    backward (grid step s covers knots [C*(N/C-1-s), C*(N/C-1-s)+C),
-    inner loop cc = C-1..0 so knots decrease).
-
-    Chunking rationale (round 5, same as ops/pallas_packed.py): at one
-    knot per grid step the ~2.5 us Mosaic grid-step overhead dominated
-    the kernel (60 steps ~= 150 us of the measured 169.6 us at
-    B=2048/N=30 — scripts/roofline.py put the kernel at 11.7% of HBM
-    peak). Within a chunk the (P, p) carry stays in registers; VMEM
-    scratch carries it across grid steps.
-
-    Streamed refs hold the chunk's blocks of (8,128) lane tiles,
-    (1, C, *entry_dims, 8, 128) each. Operand order: A, B, [f], lxx,
-    luu, [lux], lx, lu, lxxT, lxT, reg, then outputs K, d, P, p, dV,
-    flags, then scratch Pc, pc. dV/flags accumulate in place at a
-    constant block index ([1, 2, 8, 128]).
+    Refs (lane block trailing, batch-tile and sublane axes squeezed):
+    A [N, n, n, L], B [N, n, m, L], lxx [N+1, n(, n), L],
+    luu [N, m(, m), L], [lux [N, m, n, L]], lx [N+1, n, L], lu [N, m, L],
+    reg [L]; outputs K [N, m, n, L], d [N, m, L], P [N, n, n, L],
+    p [N, n, L], dV [2, L], flags [2, L] (ok, smallest failing knot).
     """
     it = iter(refs)
-    A_ref, B_ref = next(it), next(it)
-    f_ref = next(it) if with_f else None
-    lxx_ref, luu_ref = next(it), next(it)
+    A_ref, B_ref, lxx_ref, luu_ref = next(it), next(it), next(it), next(it)
     lux_ref = next(it) if with_lux else None
-    lx_ref, lu_ref, lxxT_ref, lxT_ref, reg_ref = (
-        next(it), next(it), next(it), next(it), next(it))
-    K_ref, d_ref, P_ref, p_ref, dV_ref, flags_ref, Pc, pc = (
-        next(it), next(it), next(it), next(it), next(it), next(it),
-        next(it), next(it))
+    lx_ref, lu_ref, reg_ref = next(it), next(it), next(it)
+    K_ref, d_ref, P_ref, p_ref, dV_ref, flags_ref = (
+        next(it), next(it), next(it), next(it), next(it), next(it))
 
-    def acc_at(ref, j):  # dV/flags: [1, 2, 8, 128] blocks
-        return (0, j)
+    f32 = jnp.float32
+    L = reg_ref.shape[-1]
+    reg = reg_ref[:]
 
-    def lxxT_at(i, j):
+    def cost_at(ref, k, i, j):
         if diag_cost:
-            return lxxT_ref[(0, 0, i)] if i == j else None
-        return lxxT_ref[(0, 0, i, j)]
+            return ref[k, i, :] if i == j else None
+        return ref[k, i, j, :]
 
-    step = pl.program_id(1)
+    zero = jnp.zeros((L,), f32)
+    P_N = tuple(
+        tuple(zero if cost_at(lxx_ref, N, i, j) is None
+              else cost_at(lxx_ref, N, i, j) for j in range(n))
+        for i in range(n))
+    p_N = tuple(lx_ref[N, i, :] for i in range(n))
+    init = (P_N, p_N, zero, zero, jnp.ones((L,), f32), jnp.full((L,), N, f32))
 
-    @pl.when(step == 0)
-    def _init():
-        for i in range(n):
-            for j in range(n):
-                v = lxxT_at(i, j)
-                Pc[i, j] = jnp.zeros((SUB, LANE), jnp.float32) if v is None else v
-            pc[i] = lxT_ref[(0, 0, i)]
-        dV_ref[acc_at(dV_ref, 0)] = jnp.zeros((SUB, LANE), jnp.float32)
-        dV_ref[acc_at(dV_ref, 1)] = jnp.zeros((SUB, LANE), jnp.float32)
-        flags_ref[acc_at(flags_ref, 0)] = jnp.ones((SUB, LANE), jnp.float32)
-        flags_ref[acc_at(flags_ref, 1)] = jnp.full((SUB, LANE), float(N), jnp.float32)
-
-    reg = reg_ref[(0, 0)]
-    Pn = [[Pc[i, j] for j in range(n)] for i in range(n)]
-    pn = [pc[i] for i in range(n)]
-    dV0 = dV_ref[acc_at(dV_ref, 0)]
-    dV1 = dV_ref[acc_at(dV_ref, 1)]
-    ok_run = flags_ref[acc_at(flags_ref, 0)]
-    fail = flags_ref[acc_at(flags_ref, 1)]
-
-    for cc in reversed(range(C)):
-        def ld(ref, *idx):
-            return ref[(0, cc) + idx]
-
-        def st(ref, val, *idx):
-            ref[(0, cc) + idx] = val
-
-        def lxx_at(ref, i, j):
-            if diag_cost:
-                return ld(ref, i) if i == j else None
-            return ld(ref, i, j)
-
-        a = [[ld(A_ref, i, j) for j in range(n)] for i in range(n)]
-        b = [[ld(B_ref, i, j) for j in range(m)] for i in range(n)]
+    def body(t, carry):
+        Pn, pn, dV0, dV1, ok_run, fail = carry
+        k = N - 1 - t
+        a = [[A_ref[k, i, j, :] for j in range(n)] for i in range(n)]
+        b = [[B_ref[k, i, j, :] for j in range(m)] for i in range(n)]
 
         # AtP = A^T P', BtP = B^T P'
         AtP = [[sum(a[l][i] * Pn[l][j] for l in range(n)) for j in range(n)]
@@ -174,75 +91,58 @@ def _kernel(n, m, N, C, diag_cost, with_f, with_lux, symmetrize, *refs):
         def plus(base, extra):
             return extra if base is None else base + extra
 
-        Qxx = [[plus(lxx_at(lxx_ref, i, j),
+        Qxx = [[plus(cost_at(lxx_ref, k, i, j),
                      sum(AtP[i][l] * a[l][j] for l in range(n)))
                 for j in range(n)] for i in range(n)]
-        Quu = [[plus(lxx_at(luu_ref, i, j),
+        Quu = [[plus(cost_at(luu_ref, k, i, j),
                      sum(BtP[i][l] * b[l][j] for l in range(n)))
                 for j in range(m)] for i in range(m)]
-        if with_lux:
-            Qux = [[ld(lux_ref, i, j)
-                    + sum(BtP[i][l] * a[l][j] for l in range(n))
-                    for j in range(n)] for i in range(m)]
-        else:
-            Qux = [[sum(BtP[i][l] * a[l][j] for l in range(n))
-                    for j in range(n)] for i in range(m)]
-        if with_f:
-            fv = [ld(f_ref, i) for i in range(n)]
-            t = [sum(Pn[i][l] * fv[l] for l in range(n)) + pn[i]
-                 for i in range(n)]
-        else:
-            t = pn
-        Qx = [ld(lx_ref, i) + sum(a[l][i] * t[l] for l in range(n))
+        Qux = [[plus(lux_ref[k, i, j, :] if with_lux else None,
+                     sum(BtP[i][l] * a[l][j] for l in range(n)))
+                for j in range(n)] for i in range(m)]
+        Qx = [lx_ref[k, i, :] + sum(a[l][i] * pn[l] for l in range(n))
               for i in range(n)]
-        Qu = [ld(lu_ref, i) + sum(b[l][i] * t[l] for l in range(n))
+        Qu = [lu_ref[k, i, :] + sum(b[l][i] * pn[l] for l in range(n))
               for i in range(m)]
 
         # Unrolled Cholesky of Quu + reg I, per lane
-        L = [[None] * m for _ in range(m)]
-        ok_knot = jnp.ones((SUB, LANE), jnp.float32)
+        Lc = [[None] * m for _ in range(m)]
+        ok_knot = jnp.ones((L,), f32)
         for j in range(m):
             diag = Quu[j][j] + reg
             for kk in range(j):
-                diag = diag - L[j][kk] * L[j][kk]
-            pos = (diag > 0.0).astype(jnp.float32)
-            ok_knot = ok_knot * pos
+                diag = diag - Lc[j][kk] * Lc[j][kk]
+            ok_knot = ok_knot * (diag > 0.0).astype(f32)
             ljj = jnp.sqrt(jnp.maximum(diag, 1e-30))
-            L[j][j] = ljj
+            Lc[j][j] = ljj
             inv = 1.0 / ljj
             for i in range(j + 1, m):
                 s = Quu[i][j]
                 for kk in range(j):
-                    s = s - L[i][kk] * L[j][kk]
-                L[i][j] = s * inv
+                    s = s - Lc[i][kk] * Lc[j][kk]
+                Lc[i][j] = s * inv
         ok_run = ok_run * ok_knot
-        # smallest failing knot: backward order visits decreasing k, so
-        # the last overwrite wins (== the min); N when no failure.
-        # Carried in an f32 tile, exact for N < 2**24.
-        k_f = (C * ((N // C) - 1 - step) + cc).astype(jnp.float32)
-        fail = jnp.where(ok_knot < 0.5, k_f, fail)
-        # per-knot select, NOT a multiply: the guarded factorization of a
-        # failed Quu can overflow to inf and 0*inf = NaN would poison the
-        # carry for every remaining knot; where() selects 0 cleanly and
-        # the recursion continues with P = Qxx — same semantics as the
-        # scan (tvlqr.py: K_k = where(ok_k, sol, 0)), so failed-lane
-        # histories and fail_index match it exactly
+        # smallest failing knot: the loop visits decreasing k, so the
+        # last overwrite wins (== the min); N when no failure. Carried
+        # in f32, exact for N < 2**24.
+        fail = jnp.where(ok_knot < 0.5, k.astype(f32), fail)
+        # select, never multiply: a failed factorization can overflow to
+        # inf and 0*inf = NaN would poison the carry; where() gives the
+        # scan's semantics (tvlqr.py: K_k = where(ok_k, sol, 0))
         okb = ok_knot > 0.5
 
-        # Solve (L L^T) [K | d] = [Qux | -Qu]
         def chol_solve(cols):
-            # cols: list over m of [8,128] rows (one RHS)
             y = list(cols)
             for i in range(m):
                 s = y[i]
                 for kk in range(i):
-                    s = s - L[i][kk] * y[kk]
-                y[i] = s / L[i][i]
+                    s = s - Lc[i][kk] * y[kk]
+                y[i] = s / Lc[i][i]
             for i in reversed(range(m)):
                 s = y[i]
                 for kk in range(i + 1, m):
-                    s = s - L[kk][i] * y[kk]
-                y[i] = s / L[i][i]
+                    s = s - Lc[kk][i] * y[kk]
+                y[i] = s / Lc[i][i]
             return y
 
         Kk = [[None] * n for _ in range(m)]
@@ -250,39 +150,33 @@ def _kernel(n, m, N, C, diag_cost, with_f, with_lux, symmetrize, *refs):
             col = chol_solve([Qux[i][j] for i in range(m)])
             for i in range(m):
                 Kk[i][j] = jnp.where(okb, col[i], 0.0)
+                K_ref[k, i, j, :] = Kk[i][j]
         dk = chol_solve([-Qu[i] for i in range(m)])
         dk = [jnp.where(okb, dk[i], 0.0) for i in range(m)]
-
         for i in range(m):
-            for j in range(n):
-                st(K_ref, Kk[i][j], i, j)
-            st(d_ref, dk[i], i)
+            d_ref[k, i, :] = dk[i]
 
-        # Cost-to-go update via the Cholesky identity (round 4, same
-        # algebra as ops/pallas_packed.py): (Quu + reg I)K = Qux and
-        # (Quu + reg I)d = -Qu hold exactly for the substitutions above:
+        # Cost-to-go via the Cholesky identity: (Quu + reg I)K = Qux and
+        # (Quu + reg I)d = -Qu give
         #   P = Qxx - Qux'K - reg K'K;  p = Qx + Qux'd + reg K'd
-        # with Qux'K symmetric by value — only upper triangles computed
-        # (mirrored below). ~11% fewer tile-fmas per knot.
+        # with Qux'K symmetric by value — upper triangle only, mirrored.
         P_new = [[None] * n for _ in range(n)]
         for i in range(n):
             for j in range(i, n):
                 S = sum(Kk[l][i] * Qux[l][j] for l in range(m))
                 KtK = sum(Kk[l][i] * Kk[l][j] for l in range(m))
                 Pk = Qxx[i][j] - S - reg * KtK
-                P_new[i][j] = Pk
-                st(P_ref, Pk, i, j)
+                P_new[i][j] = P_new[j][i] = Pk
+                P_ref[k, i, j, :] = Pk
                 if i != j:
-                    P_new[j][i] = Pk
-                    st(P_ref, Pk, j, i)
-        p_new = [None] * n
+                    P_ref[k, j, i, :] = Pk
+        p_new = []
         for i in range(n):
             pk = (Qx[i]
                   + sum(Qux[l][i] * dk[l] for l in range(m))
                   + reg * sum(Kk[l][i] * dk[l] for l in range(m)))
-            p_new[i] = pk
-            st(p_ref, pk, i)
-        Pn, pn = P_new, p_new
+            p_new.append(pk)
+            p_ref[k, i, :] = pk
 
         # Expected decrease: d'Qu and 0.5 d'Quu d, with
         # Quu d = -Qu - reg d from the same identity
@@ -290,250 +184,68 @@ def _kernel(n, m, N, C, diag_cost, with_f, with_lux, symmetrize, *refs):
         dd = sum(dk[i] * dk[i] for i in range(m))
         dV0 = dV0 + dQu
         dV1 = dV1 - 0.5 * (dQu + reg * dd)
+        return (tuple(tuple(r) for r in P_new), tuple(p_new), dV0, dV1,
+                ok_run, fail)
 
-    del symmetrize
-    for i in range(n):
-        for j in range(n):
-            Pc[i, j] = Pn[i][j]
-        pc[i] = pn[i]
-    dV_ref[acc_at(dV_ref, 0)] = dV0
-    dV_ref[acc_at(dV_ref, 1)] = dV1
-    flags_ref[acc_at(flags_ref, 0)] = ok_run
-    flags_ref[acc_at(flags_ref, 1)] = fail
+    _, _, dV0, dV1, ok_run, fail = jax.lax.fori_loop(0, N, body, init)
+    dV_ref[0, :] = dV0
+    dV_ref[1, :] = dV1
+    flags_ref[0, :] = ok_run
+    flags_ref[1, :] = fail
 
 
-class PallasGains(NamedTuple):
-    K: jnp.ndarray  # [B, N, m, n]
-    d: jnp.ndarray  # [B, N, m]
-    P: jnp.ndarray  # [B, N+1, n, n]
-    p: jnp.ndarray  # [B, N+1, n]
-    delta_V: jnp.ndarray  # [B, 2]
-    ok: jnp.ndarray  # [B] bool
-    fail_index: jnp.ndarray  # [B] int32: smallest failing knot, N if ok
-
-
-def _to_tiles(x):
-    """[B, *rest] -> [Bt, *rest, 8, 128]."""
-    rest = x.shape[1:]
-    bt = x.shape[0] // BATCH_TILE
-    x = x.reshape((bt, SUB, LANE) + rest)
-    perm = (0,) + tuple(range(3, 3 + len(rest))) + (1, 2)
-    return jnp.transpose(x, perm)
-
-
-def _from_tiles(x):
-    """[Bt, *rest, 8, 128] -> [B, *rest]."""
-    nd = x.ndim
-    perm = (0, nd - 2, nd - 1) + tuple(range(1, nd - 2))
-    return jnp.transpose(x, perm).reshape(
-        (x.shape[0] * BATCH_TILE,) + x.shape[1:-2]
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def _run(A, B, f, lxx, luu, lux, lx, lu, reg, interpret=False):
-    Bsz, N = A.shape[0], A.shape[1]
-    n, m = A.shape[2], B.shape[3]
-    bt = Bsz // BATCH_TILE
-    lxxT, lxT = lxx[:, N:], lx[:, N:]
-    reg_b = jnp.broadcast_to(jnp.asarray(reg, jnp.float32), (Bsz,))[:, None]
-    tiles = [
-        _to_tiles(x)
-        for x in (A, B, f, lxx[:, :N], luu, lux, lx[:, :N], lu, lxxT, lxT,
-                  reg_b)
-    ]
-
-    # streamed tiles per knot (dense + f + lux path) for the chunk pick
-    tiles_per_knot = (n * n + n * m + n + n * n + m * m + m * n + n + m
-                      + (m * n + m + n * n + n))
-    C = _pick_chunk(N, tiles_per_knot, interpret)
-    Nc = N // C
-
-    def knot_spec(*blk):
-        # streamed per-chunk block: index (b, Nc-1-s) of a [Bt, N, ...]
-        # stack viewed in C-knot blocks
-        return pl.BlockSpec(
-            (1, C) + blk, lambda b, s: (b, Nc - 1 - s) + (0,) * len(blk)
-        )
-
-    def const_spec(*blk):
-        # terminal / accumulator block: constant index, stays VMEM-resident
-        return pl.BlockSpec(
-            (1, 1) + blk, lambda b, s: (b, 0) + (0,) * len(blk)
-        )
-
-    T = (SUB, LANE)
-    in_specs = [
-        knot_spec(n, n, *T), knot_spec(n, m, *T), knot_spec(n, *T),
-        knot_spec(n, n, *T), knot_spec(m, m, *T), knot_spec(m, n, *T),
-        knot_spec(n, *T), knot_spec(m, *T),
-        const_spec(n, n, *T), const_spec(n, *T), const_spec(*T),
-    ]
-    out_specs = (
-        knot_spec(m, n, *T), knot_spec(m, *T),
-        knot_spec(n, n, *T), knot_spec(n, *T),
-        pl.BlockSpec((1, 2) + T, lambda b, s: (b, 0, 0, 0)),   # dV
-        pl.BlockSpec((1, 2) + T, lambda b, s: (b, 0, 0, 0)),   # flags
-    )
-    out_shapes = (
-        jax.ShapeDtypeStruct((bt, N, m, n) + T, jnp.float32),      # K
-        jax.ShapeDtypeStruct((bt, N, m) + T, jnp.float32),         # d
-        jax.ShapeDtypeStruct((bt, N, n, n) + T, jnp.float32),      # P (0..N-1)
-        jax.ShapeDtypeStruct((bt, N, n) + T, jnp.float32),         # p (0..N-1)
-        jax.ShapeDtypeStruct((bt, 2) + T, jnp.float32),            # dV
-        jax.ShapeDtypeStruct((bt, 2) + T, jnp.float32),            # flags
-    )
-    kern = functools.partial(_kernel, n, m, N, C, False, True, True, False)
-    outs = pl.pallas_call(
-        kern,
-        grid=(bt, Nc),
-        out_shape=out_shapes,
-        in_specs=in_specs,
-        out_specs=out_specs,
-        scratch_shapes=[
-            pltpu.VMEM((n, n, SUB, LANE), jnp.float32),
-            pltpu.VMEM((n, SUB, LANE), jnp.float32),
-        ],
-        # both grid dims carry state in scratch (the Riccati recursion
-        # along knots; the re-init boundary along batch tiles)
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary")
-        ),
-        interpret=interpret,
-    )(*tiles)
-    K, d, P, p, dV, flags = (_from_tiles(x) for x in outs)
-    P = jnp.concatenate([P, lxxT], axis=1)
-    p = jnp.concatenate([p, lxT], axis=1)
-    return (K, d, P, p, dV, flags[:, 0] > 0.5,
-            flags[:, 1].astype(jnp.int32))
-
-
-def riccati_backward_pallas(A, B, f, lxx, luu, lux, lx, lu, reg=0.0,
-                            interpret=False) -> PallasGains:
-    """Fused batched Riccati backward pass.
-
-    Args (float32, batch-leading):
-      A: [B, N, n, n], B: [B, N, n, m], f: [B, N, n],
-      lxx: [B, N+1, n, n], luu: [B, N, m, m], lux: [B, N, m, n],
-      lx: [B, N+1, n], lu: [B, N, m]; B must be a multiple of 1024.
-      reg: Quu diagonal regularization — scalar or per-lane [B].
-
-    Returns PallasGains matching `jax.vmap(tvlqr_backward)` (K, d, P, p,
-    delta_V, ok, fail_index) to float32 accuracy.
-    """
-    Bsz = A.shape[0]
-    if Bsz % BATCH_TILE != 0:
-        raise ValueError(f"batch {Bsz} must be a multiple of {BATCH_TILE}")
-    args = tuple(jnp.asarray(a, jnp.float32) for a in (A, B, f, lxx, luu, lux, lx, lu))
-    return PallasGains(*_run(*args, jnp.asarray(reg, jnp.float32),
-                             interpret=interpret))
-
-
-class PallasGainsBT(NamedTuple):
-    """Gains in lane-tile layout ([Bt, N, entry..., 8, 128])."""
-
-    K: jnp.ndarray  # [Bt, N, m, n, 8, 128]
-    d: jnp.ndarray  # [Bt, N, m, 8, 128]
-    P: jnp.ndarray  # [Bt, N+1, n, n, 8, 128]
-    p: jnp.ndarray  # [Bt, N+1, n, 8, 128]
-    delta_V: jnp.ndarray  # [Bt, 2, 8, 128]
-    ok: jnp.ndarray  # [Bt, 8, 128] bool
-    fail_index: jnp.ndarray  # [Bt, 8, 128] int32
-
-
-@functools.partial(jax.jit, static_argnames=("diag_cost", "symmetrize", "interpret"))
-def _run_tiled(A, B, lxx, luu, lux, lx, lu, reg, diag_cost=False,
-               symmetrize=False, interpret=False):
-    """Tile-resident entry: operands [Bt, N(+1), entry..., 8, 128].
-
-    Same physical layout the batch-major wrapper relayouts INTO — but
-    here the caller's producers emit it directly, so there is zero
-    relayout on either side and every streamed block is one contiguous
-    (entry * 4 KB) chunk. The affine dynamics term f is omitted (always
-    zero inside the solver — dyn_expansion zeroes it); lux may be None
-    (zero cross-Hessian) and diag_cost streams lxx/luu as diagonals
-    (the reference's is_diag fast path, tvlqr.cpp:85-89,125-128).
-    """
-    bt, N = A.shape[0], A.shape[1]
-    n = A.shape[2]
+@functools.partial(jax.jit, static_argnames=("diag_cost", "interpret"))
+def _run(A, B, lxx, luu, lux, lx, lu, reg, diag_cost=False, interpret=False):
+    bt, N, n = A.shape[0], A.shape[1], A.shape[2]
     m = B.shape[3]
     with_lux = lux is not None
-    T = (SUB, LANE)
-    lxxT = lxx[:, N:]     # [bt, 1, n(, n), 8, 128]
-    lxT = lx[:, N:]       # [bt, 1, n, 8, 128]
-    reg4 = reg[:, None]   # [bt, 1, 8, 128]
+    L = LANES_PER_PROGRAM
+    grid = (bt, SUB, LANE // L)
 
-    # streamed tiles per knot (in + out) for the VMEM-capped chunk pick
-    cost_tiles = (n + m) if diag_cost else (n * n + m * m)
-    tiles_per_knot = (
-        n * n + n * m + cost_tiles + (m * n if with_lux else 0) + n + m
-        + (m * n + m + n * n + n)
-    )
-    C = _pick_chunk(N, tiles_per_knot, interpret)
-    Nc = N // C
-
-    def knot_spec(*blk):
-        nblk = len(blk)
+    def spec(*lead):
+        # [Bt, lead..., 8, 128] -> block (lead..., L) of lanes
+        nlead = len(lead)
         return pl.BlockSpec(
-            (1, C) + blk + T,
-            lambda b, s, nblk=nblk: (b, Nc - 1 - s) + (0,) * nblk + (0, 0),
+            (None,) + lead + (None, L),
+            lambda b, s, l, nlead=nlead: (b,) + (0,) * nlead + (s, l),
         )
 
-    def const_spec(*blk):
-        nblk = len(blk)
-        return pl.BlockSpec(
-            (1, 1) + blk + T,
-            lambda b, s, nblk=nblk: (b, 0) + (0,) * nblk + (0, 0),
-        )
-
-    in_arrays = [A, B, lxx[:, :N], luu]
-    in_specs = [knot_spec(n, n), knot_spec(n, m)]
-    if diag_cost:
-        in_specs += [knot_spec(n), knot_spec(m)]
-    else:
-        in_specs += [knot_spec(n, n), knot_spec(m, m)]
+    cost_x = (n,) if diag_cost else (n, n)
+    cost_u = (m,) if diag_cost else (m, m)
+    in_arrays = [A, B, lxx, luu]
+    in_specs = [spec(N, n, n), spec(N, n, m), spec(N + 1, *cost_x),
+                spec(N, *cost_u)]
     if with_lux:
         in_arrays.append(lux)
-        in_specs.append(knot_spec(m, n))
-    in_arrays += [lx[:, :N], lu, lxxT, lxT, reg4]
-    in_specs += [
-        knot_spec(n), knot_spec(m),
-        const_spec(n) if diag_cost else const_spec(n, n),
-        const_spec(n), const_spec(),
-    ]
+        in_specs.append(spec(N, m, n))
+    in_arrays += [lx, lu, reg]
+    in_specs += [spec(N + 1, n), spec(N, m), spec()]
 
-    out_specs = (
-        knot_spec(m, n), knot_spec(m),
-        knot_spec(n, n), knot_spec(n),
-        pl.BlockSpec((1, 2) + T, lambda b, s: (b, 0, 0, 0)),   # dV
-        pl.BlockSpec((1, 2) + T, lambda b, s: (b, 0, 0, 0)),   # flags
-    )
+    T = (SUB, LANE)
+    f32 = jnp.float32
     out_shapes = (
-        jax.ShapeDtypeStruct((bt, N, m, n) + T, jnp.float32),      # K
-        jax.ShapeDtypeStruct((bt, N, m) + T, jnp.float32),         # d
-        jax.ShapeDtypeStruct((bt, N, n, n) + T, jnp.float32),      # P (0..N-1)
-        jax.ShapeDtypeStruct((bt, N, n) + T, jnp.float32),         # p (0..N-1)
-        jax.ShapeDtypeStruct((bt, 2) + T, jnp.float32),            # dV
-        jax.ShapeDtypeStruct((bt, 2) + T, jnp.float32),            # flags
+        jax.ShapeDtypeStruct((bt, N, m, n) + T, f32),      # K
+        jax.ShapeDtypeStruct((bt, N, m) + T, f32),         # d
+        jax.ShapeDtypeStruct((bt, N, n, n) + T, f32),      # P (0..N-1)
+        jax.ShapeDtypeStruct((bt, N, n) + T, f32),         # p (0..N-1)
+        jax.ShapeDtypeStruct((bt, 2) + T, f32),            # dV
+        jax.ShapeDtypeStruct((bt, 2) + T, f32),            # flags
     )
-    kern = functools.partial(_kernel, n, m, N, C, diag_cost, False,
-                             with_lux, symmetrize)
-    outs = pl.pallas_call(
+    out_specs = (spec(N, m, n), spec(N, m), spec(N, n, n), spec(N, n),
+                 spec(2), spec(2))
+    kern = functools.partial(_kernel, n, m, N, diag_cost, with_lux)
+    K, d, P_st, p_st, dV, flags = pl.pallas_call(
         kern,
-        grid=(bt, Nc),
+        grid=grid,
         out_shape=out_shapes,
         in_specs=in_specs,
         out_specs=out_specs,
-        scratch_shapes=[
-            pltpu.VMEM((n, n, SUB, LANE), jnp.float32),
-            pltpu.VMEM((n, SUB, LANE), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary")
-        ),
+        compiler_params=plgpu.CompilerParams(num_warps=max(1, L // 32),
+                                             num_stages=1),
         interpret=interpret,
+        name="riccati_backward_tiled",
     )(*in_arrays)
-    K, d, P_st, p_st, dV, flags = outs
+    lxxT = lxx[:, N:]
     if diag_cost:
         # expand the diagonal terminal cost to the dense P_N block
         eye = jnp.eye(n, dtype=lxxT.dtype)[None, None, :, :, None, None]
@@ -541,38 +253,25 @@ def _run_tiled(A, B, lxx, luu, lux, lx, lu, reg, diag_cost=False,
     else:
         PN = lxxT
     P = jnp.concatenate([P_st, PN], axis=1)
-    p = jnp.concatenate([p_st, lxT], axis=1)
+    p = jnp.concatenate([p_st, lx[:, N:]], axis=1)
     return (K, d, P, p, dV, flags[:, 0] > 0.5, flags[:, 1].astype(jnp.int32))
 
 
 def riccati_backward_pallas_tiled(A, B, lxx, luu, lx, lu, reg, lux=None,
                                   diag_cost=False, symmetrize=False,
-                                  interpret=False) -> PallasGainsBT:
-    """Tile-resident fused Riccati backward pass (zero relayout).
+                                  interpret=False) -> TiledGains:
+    """Tiled batched Riccati backward pass as one GPU kernel.
 
-    Args (float32, lane tiles trailing, batch-tile index leading):
-      A: [Bt, N, n, n, 8, 128], B: [Bt, N, n, m, 8, 128],
-      lxx: [Bt, N+1, n, n, ...] (or [Bt, N+1, n, ...] when diag_cost),
-      luu: [Bt, N, m, m, ...] (or [Bt, N, m, ...] when diag_cost),
-      lx: [Bt, N+1, n, ...], lu: [Bt, N, m, ...], reg: [Bt, 8, 128],
-      lux: [Bt, N, m, n, ...] or None (zero cross-Hessian).
-
-    The affine dynamics term is implicitly zero (the solver's
-    dyn_expansion zeroes it — problem.py dyn_expansion docstring).
-    Returns PallasGainsBT in the same layout; use `tiles_to_batch`
-    only at pipeline edges where batch-major views are needed.
+    Same signature and result as ops/tile_iter.riccati_backward_tiled
+    (float32 operands, [Bt, N(+1), entry..., 8, 128]). `symmetrize` is
+    accepted and ignored: the Cholesky-identity update is symmetric by
+    construction. interpret=True runs the kernel in the Pallas
+    interpreter (tests on the CPU).
     """
-    return PallasGainsBT(*_run_tiled(
-        A, B, lxx, luu, lux, lx, lu, reg,
-        diag_cost=diag_cost, symmetrize=symmetrize, interpret=interpret))
-
-
-def batch_to_tiles(x):
-    """[B, *rest] -> [Bt, *rest, 8, 128] (an explicit relayout; only for
-    tests and pipeline edges — producers should emit tiles directly)."""
-    return _to_tiles(x)
-
-
-def tiles_to_batch(x):
-    """[Bt, *rest, 8, 128] -> [B, *rest] (explicit relayout)."""
-    return _from_tiles(x)
+    del symmetrize
+    f32 = jnp.float32
+    args = [jnp.asarray(x, f32) for x in (A, B, lxx, luu)]
+    lux = None if lux is None else jnp.asarray(lux, f32)
+    return TiledGains(*_run(
+        *args, lux, jnp.asarray(lx, f32), jnp.asarray(lu, f32),
+        jnp.asarray(reg, f32), diag_cost=diag_cost, interpret=interpret))

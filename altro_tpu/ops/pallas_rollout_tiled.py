@@ -1,83 +1,60 @@
-"""Pallas TPU kernel: tile-resident BATCHED line-search trial-grid rollout.
+"""GPU kernel (Pallas through Triton): tiled line-search trial-grid rollout.
 
-Round-5 stage attribution (scripts/profile_tile_stages.py, TPU v5e,
-B=2048 headline shapes, chained 400-rep timing): the W=8 trial rollout
-grid is 0.320 ms of the 0.348 ms tile-resident iteration — the Riccati
-backward, expansions and completion almost fully overlap with it. Even
-a single-trial rollout costs 0.197 ms: the 30-step knot-sequential XLA
-scan pays op-granularity scheduling latency per knot (~6.6 us/knot for
-a body whose pure VPU issue time is well under 1 us). This kernel runs
-the WHOLE grid rollout as ONE Pallas program:
+The plain twin is ops/tile_iter.rollout_grid_tiled: a knot-sequential XLA
+scan whose step is the per-lane policy + dynamics + AL-cost step, vmapped
+over the W trial step sizes. XLA emits it as a while loop of small
+fusions, one launch or more per knot. This kernel runs the whole trial
+grid as ONE program launch:
 
-  * lanes: each (8, 128) tile holds 1024 independent batch lanes — the
-    same lane-tile layout as the fused tiled backward
-    (ops/pallas_riccati.py); state components are separate tiles;
-  * the W trial step sizes are an unrolled in-kernel loop, so the
-    per-knot operands (x_ref, u_ref, K, d, cost rows, constraint rows)
-    are read from VMEM once and reused by all W trials;
-  * the x carry ([W, n] tiles) and running merit phi ([W] tiles) live
-    in VMEM scratch across grid steps (registers within a chunk);
-  * the user dynamics run INSIDE the kernel through the COLUMN-form
-    tile-step protocol (models/tile_steps.py: Problem.dynamics_cols —
-    `step(x_cols, u_cols, h)` on per-component (8, 128) tiles, written
-    in Mosaic-lowerable jnp ops);
-  * the merit (diagonal-cost AL value) accumulates in-kernel; affine
-    NEGATIVE_ORTHANT constraint groups add their AL term from
-    rho-premultiplied per-knot coefficient tiles (same algebra as the
-    packed kernel, ops/pallas_rollout.py::_al_term).
+  * one program per (trial, block of lanes): the W trials are
+    independent, so they ride the grid beside the lanes — W times the
+    programs in flight of the Riccati kernel at the same batch;
+  * the knot loop runs inside the program with the state carry in
+    registers; per-knot operands are lane-contiguous rows of the
+    [Bt, N, entry..., 8, 128] tiles (shared, unbatched leaves are
+    loaded as scalars);
+  * the user dynamics run in the kernel through the column-form step
+    (models/tile_steps.py: Problem.dynamics_cols — elementwise on
+    per-component lane vectors);
+  * the merit (DiagonalCost AL value) accumulates in the kernel; affine
+    NEGATIVE_ORTHANT constraint groups add their AL term from per-knot
+    coefficient rows extracted once at trace time.
 
-Scope (mirrors the packed kernel's): DiagonalCost; every constraint
-group declared affine with a NEGATIVE_ORTHANT cone (bounds / boxes /
-linear halfspaces) and UNBATCHED specs; f32; column-form dynamics
-present. Everything else keeps the XLA scan grid
-(ops/tile_iter.rollout_grid_tiled), whose values this kernel matches
-to f32 roundoff (tests/test_pallas_rollout_tiled.py).
+Scope: DiagonalCost; every constraint group declared affine with a
+NEGATIVE_ORTHANT cone (bounds / boxes / linear halfspaces) and an
+UNBATCHED spec; f32; column-form dynamics present
+(`rollout_tiled_eligible`). Everything else keeps the plain scan grid.
 
 Reference parity: the merit rollout loop this fuses is
-solver.cpp:273-316 (MeritFunction: closed-loop rollout + AL cost); the
-reference runs it once per trial per solve on one thread.
+solver.cpp:273-316 (MeritFunction: closed-loop rollout + AL cost).
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from altro_tpu.ops.pallas_riccati import SUB, LANE
+from altro_tpu.ops.tiles import LANE, SUB
 
 __all__ = [
     "rollout_tiled_eligible",
     "rollout_grid_pallas_tiled",
+    "affine_constraint_stacks",
+    "LANES_PER_PROGRAM",
 ]
 
-
-def _pick_chunk(N: int, tiles_per_knot: int, interpret: bool) -> int:
-    """Knots per grid step: amortize the ~2.5 us Mosaic grid-step
-    overhead against a ~4 MB double-buffered VMEM budget per side (the
-    same policy as the tiled backward's _pick_chunk; at quadrotor
-    n=12 / W=8 block sizes the streamed chunk is ~10x the bicycle's).
-    The body unrolls W trials x C knots, so C also bounds Mosaic
-    compile time; interpret mode defaults to 1 (the interpreter pays
-    minutes on unrolled multi-knot bodies). Override:
-    ALTRO_ROLLOUT_TILED_CHUNK."""
-    default = "1" if interpret else "6"
-    cap = int(os.environ.get("ALTRO_ROLLOUT_TILED_CHUNK", default))
-    vmem_cap = max(1, int(4e6 // (tiles_per_knot * SUB * LANE * 4)))
-    for c in (6, 5, 4, 3, 2):
-        if c <= min(cap, vmem_cap) and N % c == 0:
-            return c
-    return 1
+# Lanes per program (one lane per thread). Power of two dividing 128.
+LANES_PER_PROGRAM = 128
 
 
 def rollout_tiled_eligible(problem, prob_axes) -> bool:
-    """True when the batched trial-grid rollout can run as the Pallas
-    kernel: column-form dynamics present, DiagonalCost, every constraint
-    group affine + NEGATIVE_ORTHANT with an UNBATCHED spec (the affine
+    """True when the batched trial-grid rollout can run as the kernel:
+    column-form dynamics present, DiagonalCost, every constraint group
+    affine + NEGATIVE_ORTHANT with an UNBATCHED spec (the affine
     coefficient extraction evaluates the shared per-lane callable)."""
     from altro_tpu.cones import Cone
     from altro_tpu.problem import DiagonalCost
@@ -94,253 +71,195 @@ def rollout_tiled_eligible(problem, prob_axes) -> bool:
     return True
 
 
-def _kernel(n, m, P, W, Nc, C, step_cols, *refs):
-    """One grid step = one chunk of C knots of one batch tile, forward.
+def affine_constraint_stacks(problem):
+    """Per-knot affine coefficients of the declared-affine constraint
+    groups, concatenated over groups:
+      cax [N+1, P, n], cau [N+1, P, m], cg [N+1, P], act [N+1, P]
+    with c_e(x, u) = cax_e . x + cau_e . u + cg_e exactly (the
+    ConstraintSpec.affine contract). Extracted once at trace time by
+    evaluating each group's Jacobian/value at (0, 0)."""
+    n, m = problem.n, problem.m
+    dtype = jnp.float32
+    ks = jnp.arange(problem.N + 1, dtype=jnp.int32)
+    xz = jnp.zeros((n,), dtype)
+    uz = jnp.zeros((m,), dtype)
+    AX, AU, G, ACT = [], [], [], []
+    for spec in problem.constraints:
+        J = jax.vmap(lambda k: spec.jacobian(xz, uz, k))(ks)  # [N+1, p, n+m]
+        g = jax.vmap(lambda k: spec.fn(xz, uz, k))(ks)        # [N+1, p]
+        AX.append(J[:, :, :n])
+        AU.append(J[:, :, n:])
+        G.append(g)
+        ACT.append(
+            jnp.broadcast_to(spec.active[:, None], g.shape).astype(dtype))
+    return (jnp.concatenate(AX, axis=1), jnp.concatenate(AU, axis=1),
+            jnp.concatenate(G, axis=1), jnp.concatenate(ACT, axis=1))
 
-    Streamed refs hold the chunk's (8, 128) lane tiles; the x carry
-    ([W, n] tiles) and running phi ([W] tiles) persist in VMEM scratch
-    (registers within a chunk). Operand order: xref, uref, K, d, Qd, q,
-    Rd, r, cconst, h, [wax, wau, wg,] alphas, x0, rhoi, QdT, qT, ccT,
-    [waxT, wgT,] then outputs x_out, xN_out, phi_out, scratch x_scr,
-    phi_scr."""
+
+def _kernel(n, m, P, N, step_cols, *refs):
+    """One program = one trial x one block of lanes, all N knots.
+
+    Refs: alphas [W]; x0 [n, L], xref [N+1, n, L], uref [N, m, L],
+    K [N, m, n, L], d [N, m, L], rho [L]; cost rows Q, q [N+1, n(, L)],
+    R, r [N(+1), m(, L)], c [N+1(, L)], h [N(, L)] — lane-blocked when
+    batched, whole shared arrays (scalar loads) when not; with P > 0
+    the masked affine rows cax [N+1, P, n], cau [N+1, P, m], cg [N+1, P]
+    and the duals z [N+1, P, L]; outputs x [N+1, n, L], phi [L].
+    """
     it = iter(refs)
-    xref_ref, uref_ref, K_ref, d_ref = next(it), next(it), next(it), next(it)
-    Qd_ref, q_ref, Rd_ref, r_ref, cc_ref, h_ref = (
-        next(it), next(it), next(it), next(it), next(it), next(it))
+    a_ref, x0_ref, xref_ref, uref_ref, K_ref, d_ref, rho_ref = (
+        next(it) for _ in range(7))
+    Q_ref, q_ref, R_ref, r_ref, c_ref, h_ref = (next(it) for _ in range(6))
     if P:
-        wax_ref, wau_ref, wg_ref = next(it), next(it), next(it)
-    a_ref, x0_ref, rhoi_ref = next(it), next(it), next(it)
-    QdT_ref, qT_ref, ccT_ref = next(it), next(it), next(it)
-    if P:
-        waxT_ref, wgT_ref = next(it), next(it)
-    x_out_ref, xN_out_ref, phi_out_ref, x_scr, phi_scr = (
-        next(it), next(it), next(it), next(it), next(it))
+        cax_ref, cau_ref, cg_ref, z_ref = (next(it) for _ in range(4))
+    x_out_ref, phi_ref = next(it), next(it)
 
-    step = pl.program_id(1)
+    f32 = jnp.float32
+    L = rho_ref.shape[-1]
+    alpha = a_ref[pl.program_id(0)]
+    rho = rho_ref[:]
+    rhoi = 0.5 / rho
 
-    @pl.when(step == 0)
-    def _init():
-        for w in range(W):
-            for i in range(n):
-                x_scr[w, i] = x0_ref[0, i]
-            phi_scr[w] = jnp.zeros((SUB, LANE), jnp.float32)
+    def row(ref, *idx):
+        # lane row of a batched leaf (its block keeps a trailing lane
+        # axis), or a scalar of a shared one
+        if len(ref.shape) == len(idx) + 1:
+            return ref[idx + (slice(None),)]
+        return ref[idx]
 
-    rhoi = rhoi_ref[0]
-    xs = [[x_scr[w, i] for i in range(n)] for w in range(W)]
-    phis = [phi_scr[w] for w in range(W)]
-    alphas = [a_ref[w] for w in range(W)]
+    def al_term(k, x, u):
+        # RHOI * sum_e min(0, w_e)^2, w_e = z_e - rho c_e (masked rows:
+        # 0 at inactive knots)
+        out = jnp.zeros((L,), f32)
+        for e in range(P):
+            c_e = cg_ref[k, e] + sum(cax_ref[k, e, i] * x[i] for i in range(n))
+            if u is not None:
+                c_e = c_e + sum(cau_ref[k, e, j] * u[j] for j in range(m))
+            w = z_ref[k, e, :] - rho * c_e
+            pw = jnp.minimum(w, 0.0)
+            out = out + rhoi * pw * pw
+        return out
 
-    for cc in range(C):
-        xref = [xref_ref[0, cc, i] for i in range(n)]
-        uref = [uref_ref[0, cc, j] for j in range(m)]
-        Krow = [[K_ref[0, cc, j, i] for i in range(n)] for j in range(m)]
-        dk = [d_ref[0, cc, j] for j in range(m)]
-        qd = [Qd_ref[0, cc, i] for i in range(n)]
-        ql = [q_ref[0, cc, i] for i in range(n)]
-        rd = [Rd_ref[0, cc, j] for j in range(m)]
-        rl = [r_ref[0, cc, j] for j in range(m)]
-        ccst = cc_ref[0, cc]
-        hk = h_ref[0, cc]
+    x0 = tuple(x0_ref[i, :] for i in range(n))
+
+    def body(k, carry):
+        x, ph = carry
+        dx = [x[i] - xref_ref[k, i, :] for i in range(n)]
+        u = [
+            uref_ref[k, j, :] + alpha * d_ref[k, j, :]
+            - sum(K_ref[k, j, i, :] * dx[i] for i in range(n))
+            for j in range(m)
+        ]
+        ph = (
+            ph
+            + 0.5 * sum(row(Q_ref, k, i) * x[i] * x[i] for i in range(n))
+            + sum(row(q_ref, k, i) * x[i] for i in range(n))
+            + 0.5 * sum(row(R_ref, k, j) * u[j] * u[j] for j in range(m))
+            + sum(row(r_ref, k, j) * u[j] for j in range(m))
+            + row(c_ref, k)
+        )
         if P:
-            wax = [[wax_ref[0, cc, e, i] for i in range(n)] for e in range(P)]
-            wau = [[wau_ref[0, cc, e, j] for j in range(m)] for e in range(P)]
-            wg = [wg_ref[0, cc, e] for e in range(P)]
-
-        for w in range(W):
-            x = xs[w]
-            dx = [x[i] - xref[i] for i in range(n)]
-            u = [
-                uref[j] + alphas[w] * dk[j]
-                - sum(Krow[j][i] * dx[i] for i in range(n))
-                for j in range(m)
-            ]
-            ph = (
-                phis[w]
-                + 0.5 * sum(qd[i] * x[i] * x[i] for i in range(n))
-                + sum(ql[i] * x[i] for i in range(n))
-                + 0.5 * sum(rd[j] * u[j] * u[j] for j in range(m))
-                + sum(rl[j] * u[j] for j in range(m))
-                + ccst
-            )
-            if P:
-                for e in range(P):
-                    we = (wg[e]
-                          - sum(wax[e][i] * x[i] for i in range(n))
-                          - sum(wau[e][j] * u[j] for j in range(m)))
-                    pw = jnp.minimum(we, 0.0)
-                    ph = ph + rhoi * pw * pw
-            for i in range(n):
-                x_out_ref[w, 0, cc, i] = x[i]
-            xs[w] = list(step_cols(tuple(x), tuple(u), hk))
-            phis[w] = ph
-
-    for w in range(W):
+            ph = ph + al_term(k, x, u)
         for i in range(n):
-            x_scr[w, i] = xs[w][i]
-        phi_scr[w] = phis[w]
+            x_out_ref[k, i, :] = x[i]
+        x_next = step_cols(tuple(x), tuple(u), row(h_ref, k))
+        return tuple(jnp.broadcast_to(xi, (L,)) for xi in x_next), ph
 
-    @pl.when(step == Nc - 1)
-    def _final():
-        for w in range(W):
-            x = xs[w]
-            ph = (
-                phis[w]
-                + 0.5 * sum(QdT_ref[0, i] * x[i] * x[i] for i in range(n))
-                + sum(qT_ref[0, i] * x[i] for i in range(n))
-                + ccT_ref[0]
-            )
-            if P:
-                for e in range(P):
-                    we = wgT_ref[0, e] - sum(
-                        waxT_ref[0, e, i] * x[i] for i in range(n))
-                    pw = jnp.minimum(we, 0.0)
-                    ph = ph + rhoi * pw * pw
-            phi_out_ref[w, 0] = ph
-            for i in range(n):
-                xN_out_ref[w, 0, i] = x[i]
-
-
-def _bcast_tiled(leaf, batched, bt):
-    """Shared [knot, ...] leaf -> [Bt, knot, ..., 8, 128] broadcast; a
-    batched leaf is already tiled and passes through."""
-    if batched:
-        return jnp.asarray(leaf, jnp.float32)
-    leaf = jnp.asarray(leaf, jnp.float32)
-    shape = (bt,) + leaf.shape + (SUB, LANE)
-    ix = (None,) + (slice(None),) * leaf.ndim + (None, None)
-    return jnp.broadcast_to(leaf[ix], shape)
+    x, ph = jax.lax.fori_loop(0, N, body, (x0, jnp.zeros((L,), f32)))
+    ph = (
+        ph
+        + 0.5 * sum(row(Q_ref, N, i) * x[i] * x[i] for i in range(n))
+        + sum(row(q_ref, N, i) * x[i] for i in range(n))
+        + row(c_ref, N)
+    )
+    if P:
+        ph = ph + al_term(N, x, None)
+    for i in range(n):
+        x_out_ref[N, i, :] = x[i]
+    phi_ref[:] = ph
 
 
 def rollout_grid_pallas_tiled(ta, ref_x_t, ref_u_t, K_t, d_t, z_t, rho_t,
                               alphas, x0_t, interpret=False):
-    """Tile-resident batched trial-grid rollout as one Pallas program.
+    """Tiled batched trial-grid rollout as one GPU kernel launch.
 
     Same contract as ops/tile_iter.rollout_grid_tiled: returns
     (phis [W, Bt, 8, 128], xstacks [W, Bt, N+1, n, 8, 128]). Caller
-    gates on `rollout_tiled_eligible`.
+    gates on `rollout_tiled_eligible`. interpret=True runs the kernel in
+    the Pallas interpreter (tests on the CPU).
     """
-    from altro_tpu.ops.pallas_rollout import affine_constraint_stacks
-
     problem, prob_axes, z_axes = ta
     N, n, m = problem.N, problem.n, problem.m
     W = int(alphas.shape[0])
     bt = x0_t.shape[0]
     dtype = x0_t.dtype
     cost, cost_axes = problem.cost, prob_axes.cost
+    L = LANES_PER_PROGRAM
     T = (SUB, LANE)
     f32 = jnp.float32
 
+    def lane_spec(*lead):
+        # [Bt, lead..., 8, 128] -> block (lead..., L) of lanes
+        nl = len(lead)
+        return pl.BlockSpec(
+            (None,) + lead + (None, L),
+            lambda w, b, s, l, nl=nl: (b,) + (0,) * nl + (s, l))
+
+    def whole_spec(shape):
+        nd = len(shape)
+        return pl.BlockSpec(shape, lambda w, b, s, l, nd=nd: (0,) * nd)
+
+    def leaf(x, batched):
+        x = jnp.asarray(x, f32)
+        if batched:
+            return x, lane_spec(*x.shape[1:-2])
+        return x, whole_spec(x.shape)
+
+    operands = [
+        (jnp.asarray(alphas, f32), whole_spec((W,))),
+        leaf(x0_t, True), leaf(ref_x_t, True), leaf(ref_u_t, True),
+        leaf(K_t, True), leaf(d_t, True), leaf(rho_t, True),
+        leaf(cost.Q, cost_axes.Q), leaf(cost.q, cost_axes.q),
+        leaf(cost.R, cost_axes.R), leaf(cost.r, cost_axes.r),
+        leaf(cost.c, cost_axes.c), leaf(problem.h, prob_axes.h),
+    ]
     P = sum(spec.dim for spec in problem.constraints)
-    # streamed tiles per knot: operands + the W-trial x_out block
-    tiles_per_knot = (
-        n + m + m * n + m + 2 * n + 2 * m + 2 + P * (n + m + 1) + W * n
-    )
-    C = _pick_chunk(N, tiles_per_knot, interpret)
-    Nc = N // C
-
-    # cost rows, broadcast per-lane where shared
-    Qd_t = _bcast_tiled(cost.Q, cost_axes.Q, bt)
-    q_t = _bcast_tiled(cost.q, cost_axes.q, bt)
-    Rd_t = _bcast_tiled(cost.R, cost_axes.R, bt)
-    r_t = _bcast_tiled(cost.r, cost_axes.r, bt)
-    cc_t = _bcast_tiled(cost.c, cost_axes.c, bt)
-    h_t = _bcast_tiled(problem.h, prob_axes.h, bt)
-
-    in_arrays = [
-        jnp.asarray(ref_x_t[:, :N], f32), jnp.asarray(ref_u_t, f32),
-        jnp.asarray(K_t, f32), jnp.asarray(d_t, f32),
-        Qd_t[:, :N], q_t[:, :N], Rd_t[:, :N], r_t[:, :N], cc_t[:, :N],
-        h_t,
-    ]
-
-    def knot_spec(*blk):
-        nblk = len(blk)
-        return pl.BlockSpec(
-            (1, C) + blk + T,
-            lambda b, s, nblk=nblk: (b, s) + (0,) * nblk + (0, 0),
-        )
-
-    def const_spec(lead, *blk):
-        nblk = len(blk)
-        return pl.BlockSpec(
-            (lead,) + blk + T,
-            lambda b, s, nblk=nblk: (0,) + (0,) * nblk + (0, 0),
-        )
-
-    def bt_const_spec(*blk):
-        nblk = len(blk)
-        return pl.BlockSpec(
-            (1,) + blk + T,
-            lambda b, s, nblk=nblk: (b,) + (0,) * nblk + (0, 0),
-        )
-
-    in_specs = [
-        knot_spec(n), knot_spec(m), knot_spec(m, n), knot_spec(m),
-        knot_spec(n), knot_spec(n), knot_spec(m), knot_spec(m),
-        knot_spec(), knot_spec(),
-    ]
-
     if P:
         cax, cau, cg, act = affine_constraint_stacks(problem)
-        # rho-premultiplied, active-masked rows (packed-kernel algebra:
-        # w_e = wg - wax.x - wau.u = z - rho*c at active knots, 0 else)
         z_cat = jnp.concatenate(
             [zj if b else jnp.broadcast_to(
-                zj[None, :, :, None, None],
-                (bt,) + zj.shape + T)
+                zj[None, :, :, None, None], (bt,) + zj.shape + T)
              for zj, b in zip(z_t, z_axes)],
             axis=2,
-        ).astype(f32)
-        rho4 = rho_t[:, None, None, :, :].astype(f32)    # [Bt,1,1,S,L]
-        axm = (cax * act[:, :, None]).astype(f32)        # [N+1,P,n]
-        aum = (cau * act[:, :, None]).astype(f32)
-        gm = (cg * act).astype(f32)
-        wax_t = rho4[:, :, :, None] * axm[None, :, :, :, None, None]
-        wau_t = rho4[:, :, :, None] * aum[None, :, :, :, None, None]
-        wg_t = (act[None, :, :, None, None] * z_cat
-                - rho4 * gm[None, :, :, None, None])
-        in_arrays += [wax_t[:, :N], wau_t[:, :N], wg_t[:, :N]]
-        in_specs += [knot_spec(P, n), knot_spec(P, m), knot_spec(P)]
+        )
+        operands += [
+            leaf(cax * act[:, :, None], False),
+            leaf(cau * act[:, :, None], False),
+            leaf(cg * act, False),
+            leaf(z_cat * act[None, :, :, None, None], True),
+        ]
+    in_arrays, in_specs = zip(*operands)
 
-    a_t = jnp.broadcast_to(
-        alphas.astype(f32)[:, None, None], (W,) + T)
-    rhoi_t = (1.0 / (2.0 * rho_t)).astype(f32)
-    in_arrays += [a_t, jnp.asarray(x0_t, f32), rhoi_t,
-                  Qd_t[:, N], q_t[:, N], cc_t[:, N]]
-    in_specs += [const_spec(W), bt_const_spec(n), bt_const_spec(),
-                 bt_const_spec(n), bt_const_spec(n), bt_const_spec()]
-    if P:
-        in_arrays += [wax_t[:, N], wg_t[:, N]]
-        in_specs += [bt_const_spec(P, n), bt_const_spec(P)]
-
-    out_specs = [
-        pl.BlockSpec((W, 1, C, n) + T,
-                     lambda b, s: (0, b, s, 0, 0, 0)),
-        pl.BlockSpec((W, 1, n) + T, lambda b, s: (0, b, 0, 0, 0)),
-        pl.BlockSpec((W, 1) + T, lambda b, s: (0, b, 0, 0)),
-    ]
-    out_shapes = [
-        jax.ShapeDtypeStruct((W, bt, N, n) + T, f32),   # x knots 0..N-1
-        jax.ShapeDtypeStruct((W, bt, n) + T, f32),      # x_N
-        jax.ShapeDtypeStruct((W, bt) + T, f32),         # phi
-    ]
-    kern = functools.partial(
-        _kernel, n, m, P, W, Nc, C, problem.dynamics_cols)
-    x_out, x_N, phi = pl.pallas_call(
+    out_shapes = (
+        jax.ShapeDtypeStruct((W, bt, N + 1, n) + T, f32),   # x knots 0..N
+        jax.ShapeDtypeStruct((W, bt) + T, f32),             # phi
+    )
+    out_specs = (
+        pl.BlockSpec((None, None, N + 1, n, None, L),
+                     lambda w, b, s, l: (w, b, 0, 0, s, l)),
+        pl.BlockSpec((None, None, None, L),
+                     lambda w, b, s, l: (w, b, s, l)),
+    )
+    kern = functools.partial(_kernel, n, m, P, N, problem.dynamics_cols)
+    xstack, phi = pl.pallas_call(
         kern,
-        grid=(bt, Nc),
-        in_specs=in_specs,
+        grid=(W, bt, SUB, LANE // L),
+        in_specs=list(in_specs),
         out_specs=out_specs,
         out_shape=out_shapes,
-        scratch_shapes=[
-            pltpu.VMEM((W, n, SUB, LANE), jnp.float32),  # x carry
-            pltpu.VMEM((W, SUB, LANE), jnp.float32),     # phi carry
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary")),
+        compiler_params=plgpu.CompilerParams(num_warps=max(1, L // 32),
+                                             num_stages=1),
         interpret=interpret,
+        name="rollout_grid_tiled",
     )(*in_arrays)
-
-    xstack = jnp.concatenate(
-        [x_out, x_N[:, :, None]], axis=2).astype(dtype)
-    return phi.astype(dtype), xstack
+    return phi.astype(dtype), xstack.astype(dtype)

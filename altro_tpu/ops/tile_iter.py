@@ -1,33 +1,31 @@
 """Tile-resident solver-iteration building blocks.
 
-Round-2 profiling (docs/PERF.md) proved the flagship's dominant cost is
-LAYOUT: the fused Pallas backward wants lane-tile operands
-([Bt, ..., 8, 128]) while the forward pass / line search consumed
-batch-major arrays, so ~23 MB of operands relayouted through XLA's slow
-small-minor-dim transpose path EVERY solver iteration — and fixing it at
-the backward boundary alone lost end-to-end (the K/d/P/p edge
-conversions recur each iteration; docs/PERF.md "tile-resident ...
-opt-in" section). The fix is a tile-resident ITERATION: every consumer
-of the per-iteration data — the Riccati backward, the line-search trial
+A batched solve whose pieces disagree on layout pays a relayout of
+every per-iteration operand at each boundary, every iteration. The
+tile-resident ITERATION avoids that: every consumer of the
+per-iteration data — the Riccati backward, the line-search trial
 rollouts, the accepted-step completion, the optimality/dual/penalty
-bookkeeping — operates on lane-tile arrays, so the layout NEVER changes
-inside the solve (edges convert once per solve call, or once per
-closed-loop MPC run when the caller keeps its state tiled).
+bookkeeping — operates on lane-tile arrays (ops/tiles.py), so the
+layout NEVER changes inside the solve (edges convert once per solve
+call, or once per closed-loop MPC run when the caller keeps its state
+tiled).
 
-The batching strategy reuses the proven `ops/tiled_backward.py`
-expansion trick everywhere: per-lane functions (model dynamics, AL cost,
+The batching strategy: per-lane functions (model dynamics, AL cost,
 cone projections — any JAX-traceable user callable) are lifted over the
 (sublane, lane) tile axes with TRAILING-axis nested vmaps and over the
-batch-tile axis leading, so arrays materialize directly in the kernel's
+batch-tile axis leading, so arrays materialize directly in the
 [Bt, orig..., 8, 128] layout and XLA never inserts a minor-dim
-transpose. Sequential pieces (the closed-loop trial rollouts) are
-`lax.scan`s whose step is such a lifted per-lane step and whose carry is
-a lane-tile state.
+transpose. Sequential pieces (the Riccati backward, the closed-loop
+trial rollouts) are `lax.scan`s whose step is such a lifted per-lane
+step and whose carry is a lane-tile state. These are the plain twins of
+the GPU kernels (ops/pallas_riccati.py, ops/pallas_rollout_tiled.py):
+what the CPU runs, what the kernels are tested against, and what they
+are timed against.
 
 Reference loop being made natively batched: SolverImpl::Solve
 (/root/reference/src/altro/solver/solver.cpp:414-511) — the reference
 runs one solve per call on one thread; here B lanes run in lockstep with
-per-lane masking, which is the TPU-native shape of its MPC deployment
+per-lane masking, which is the batched shape of its MPC deployment
 (bicycle_test.cpp:302-337 re-solves the same structure per scenario).
 """
 
@@ -39,12 +37,14 @@ import jax
 import jax.numpy as jnp
 
 from altro_tpu import al
-from altro_tpu.ops.pallas_riccati import BATCH_TILE, SUB, LANE
+from altro_tpu.tvlqr import tvlqr_backward
 
 __all__ = [
     "tile_vmap",
     "retry_tiled",
     "TileArgs",
+    "TiledGains",
+    "riccati_backward_tiled",
     "rollout_phi_x_tiled",
     "rollout_grid_tiled",
     "light_from_xstack_tiled",
@@ -68,6 +68,46 @@ def tile_vmap(f, in_axes, out_axes=0):
     g = jax.vmap(f, in_axes=lane, out_axes=-1)
     g = jax.vmap(g, in_axes=lane, out_axes=-1)
     return jax.vmap(g, in_axes=tile, out_axes=out_axes)
+
+
+class TiledGains(NamedTuple):
+    """Riccati gains in lane-tile layout ([Bt, N, entry..., 8, 128])."""
+
+    K: jnp.ndarray  # [Bt, N, m, n, 8, 128]
+    d: jnp.ndarray  # [Bt, N, m, 8, 128]
+    P: jnp.ndarray  # [Bt, N+1, n, n, 8, 128]
+    p: jnp.ndarray  # [Bt, N+1, n, 8, 128]
+    delta_V: jnp.ndarray  # [Bt, 2, 8, 128]
+    ok: jnp.ndarray  # [Bt, 8, 128] bool
+    fail_index: jnp.ndarray  # [Bt, 8, 128] int32: smallest failing knot, N if ok
+
+
+def riccati_backward_tiled(A, B, lxx, luu, lx, lu, reg, lux=None,
+                           diag_cost=False, symmetrize=False) -> TiledGains:
+    """`tvlqr_backward` lifted onto the lane-tile layout.
+
+    Args (lane tiles trailing, batch-tile index leading):
+      A: [Bt, N, n, n, 8, 128], B: [Bt, N, n, m, 8, 128],
+      lxx: [Bt, N+1, n, n, ...] (or [Bt, N+1, n, ...] when diag_cost),
+      luu: [Bt, N, m, m, ...] (or [Bt, N, m, ...] when diag_cost),
+      lx: [Bt, N+1, n, ...], lu: [Bt, N, m, ...], reg: [Bt, 8, 128],
+      lux: [Bt, N, m, n, ...] or None (zero cross-Hessian).
+
+    The affine dynamics term is zero (the solver's dyn_expansion zeroes
+    it). diag_cost is read from lxx's rank by tvlqr_backward; the flag is
+    kept so this twin and the GPU kernel share one signature.
+    """
+    del diag_cost
+
+    def lane(A_, B_, lxx_, luu_, lux_, lx_, lu_, reg_):
+        f0 = jnp.zeros((A_.shape[0], A_.shape[1]), A_.dtype)
+        return tvlqr_backward(A_, B_, f0, lxx_, luu_, lux_, lx_, lu_, reg_,
+                              symmetrize=symmetrize)
+
+    with_lux = lux is not None
+    g = tile_vmap(lane, (True, True, True, True, with_lux or None, True,
+                         True, True))(A, B, lxx, luu, lux, lx, lu, reg)
+    return TiledGains(*g)
 
 
 class TileArgs(NamedTuple):

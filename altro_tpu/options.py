@@ -2,7 +2,7 @@
 
 Frozen dataclass mirroring the reference `AltroOptions`
 (/root/reference/src/altro/solver/solver_options.hpp:16-39), extended with
-the knobs the TPU redesign needs (adaptive Quu regularization schedule —
+the knobs the batched redesign needs (adaptive Quu regularization schedule —
 the reference's unused `reg` hook at solver.cpp:363 made real — and the
 parallel-scan Riccati switch).
 
@@ -167,7 +167,8 @@ class SolverOptions:
     reg_scaling: float = 10.0
     reg_max_retries: int = 12
 
-    # TPU execution strategy
+    # Execution strategy (options define the algorithm; the platform,
+    # not an option, chooses kernels — tile_solver.select_kernels)
     parallel_riccati: bool = False  # lax.associative_scan backward pass
     # Two-level span cap for parallel_riccati: 0 = pure associative
     # suffix scan (O(log N) depth; f64-recommended at long horizons),
@@ -184,70 +185,6 @@ class SolverOptions:
     # every trial (width x fewer stacked outputs; identical values).
     # Requires ls_phase_split.
     ls_grid_x_only: bool = True
-    # Packed trial-rollout Pallas kernel (ops/pallas_rollout.py): when
-    # the problem supplies a tile-form dynamics step
-    # (Problem.dynamics_tile, models/tile_steps.py protocol) and is
-    # unconstrained with a DiagonalCost, single-lane TPU f32 solves run
-    # the whole ls_grid_x_only trial grid inside ONE Pallas program
-    # (trials ride the sublanes) — the remaining sequential chain of a
-    # long-horizon solve after the packed backward kernel (docs/PERF.md
-    # round 4). DEFAULT ON: without dynamics_tile, or for constrained /
-    # CPU / f64 / batched traces, the scan grid runs as before.
-    pallas_rollout: bool = True
-    # Batched tiled trial-rollout Pallas kernel
-    # (ops/pallas_rollout_tiled.py): inside the tile-resident solve
-    # (tile_solver.solve_tiled), run the whole W-trial line-search grid
-    # rollout as ONE Pallas program over lane tiles instead of a
-    # knot-sequential XLA scan. Round-5 stage attribution measured the
-    # scan grid at 0.32 ms of the 0.35 ms headline iteration
-    # (scripts/profile_tile_stages.py) — the per-knot scan steps pay
-    # op-granularity scheduling latency the kernel eliminates.
-    # Requires Problem.dynamics_cols (the column-form tile-step
-    # protocol, models/tile_steps.py), a DiagonalCost, and affine
-    # NEGATIVE_ORTHANT constraint groups; anything else falls back to
-    # the scan grid automatically (ops.pallas_rollout_tiled.
-    # rollout_tiled_eligible). Parity vs the scan: f32 roundoff
-    # (tests/test_pallas_rollout_tiled.py).
-    pallas_rollout_tiled: bool = True
-    # Batch-fused Pallas backward pass: when the solve is vmapped over a
-    # batch that is a multiple of 1024 f32 lanes on TPU, run the whole
-    # Riccati recursion as ONE Pallas kernel over (8, 128) lane tiles
-    # instead of a vmapped scan (2-3x at n=12 blocks; ops/fused_backward).
-    # Falls back to the scan automatically when it does not apply: non-TPU
-    # default backend, batch not a multiple of 1024, non-f32 dtype, or
-    # nested batching. Limitation: the TPU check reads the process default
-    # backend / jax.default_device at trace time — operand arrays
-    # explicitly committed to a non-default device (jax.device_put) are
-    # not visible from inside the batching rule, so such a mixed-device
-    # setup can still dispatch the kernel on the wrong backend and fail
-    # at lowering (hence opt-in rather than default).
-    # Mutually exclusive with parallel_riccati / symmetrize_ctg (a
-    # ValueError at solve time; the tile-resident batched solve
-    # (tile_solver.solve_tiled) supports symmetrize_ctg natively via
-    # in-kernel re-symmetrization instead).
-    pallas_backward: bool = False
-    # Single-lane latency kernel (ops/pallas_packed.py): UNBATCHED solves
-    # on a TPU backend with f32 operands at supported block sizes
-    # (ops.pallas_packed.packed_supported — the whole repo zoo, incl.
-    # the quadrotor's n = 12 via row grouping) run the whole
-    # Riccati backward as ONE packed Pallas program instead of an N-step
-    # XLA scan of tiny ops (~10 us/knot op latency -> kernel latency;
-    # docs/PERF.md N=500 attribution). DEFAULT ON: vmapped solves, CPU /
-    # f64 traces, and blocks past packed_supported (m > 8, or fields
-    # overflowing one 128-lane tile) fall back to the scan
-    # automatically, so the flag only changes who executes the same
-    # recursion (parity ~3e-7, tests/test_pallas_packed.py). Compatible
-    # with symmetrize_ctg (in-kernel) and diag_expansion (packed
-    # diagonals); ignored when pallas_backward or parallel_riccati is
-    # selected. Matches the reference's single-solve deployment
-    # (bicycle_test.cpp:302-342) — its only execution mode.
-    pallas_latency_backward: bool = True
-    # NOTE (round 3): the round-2 opt-in `pallas_tile_resident` boundary
-    # (custom_vmap around expansion+backward only) was removed — measured
-    # 0.58x end-to-end because the K/d/P/p edge conversions recurred every
-    # iteration (docs/PERF.md). Its successor is the tile-resident
-    # ITERATION: `altro_tpu.tile_solver.solve_tiled`, a natively-batched
-    # solve whose whole loop stays in lane-tile layout (2.1x the headline).
     # Diagonal expansion fast path (the reference's is_diag,
     # tvlqr.cpp:85-89,125-128, extended to the AL Hessian): when the cost
     # is diagonal and every constraint declares diag_hessian
@@ -255,11 +192,9 @@ class SolverOptions:
     # diagonals instead of dense [.., n, n] stacks — never materializing
     # the dense Hessians — and run the diagonal Riccati step. DEFAULT ON
     # (round 3); applies on the default scan path and the tile-resident
-    # paths. The batch-major fused kernel (pallas_backward without
-    # tile-residency) and the parallel Riccati keep dense operands (their
-    # ABIs are dense) and silently ignore this flag. Ineligible problems
-    # are unaffected. Measurements (docs/PERF.md): ~flat at the n=4
-    # headline (tiled kernel), 1.14x kernel-level at n=12 blocks.
+    # path. The parallel Riccati keeps dense operands (its ABI is dense)
+    # and silently ignores this flag. Ineligible problems are
+    # unaffected.
     diag_expansion: bool = True
     # Exact (full-Newton) AL Hessians via autodiff through the AL cost,
     # instead of the Gauss-Newton form the reference hardwires
@@ -280,11 +215,11 @@ class SolverOptions:
     throw_errors: bool = True  # host API raises on failed solve
     # Re-symmetrize the Riccati cost-to-go each step: recommended for
     # long horizons (N >~ 100) in f32, where roundoff asymmetry compounds
-    # into line-search failures; costs ~40% backward-pass throughput on
-    # TPU at small n, hence opt-in. Only alters the XLA scan fallback:
-    # the Pallas kernels (packed/tiled) compute P via the
-    # Cholesky-identity form P = Qxx - Qux'K - reg*K'K, which is
-    # symmetric by construction, so they accept-and-ignore this flag.
+    # into line-search failures; the per-step transposes cost backward
+    # throughput at small n, hence opt-in. Only alters the XLA scan: the
+    # tiled GPU kernel computes P via the Cholesky-identity form
+    # P = Qxx - Qux'K - reg*K'K, symmetric by construction, so it
+    # accepts and ignores this flag.
     symmetrize_ctg: bool = False
 
     # Real-time iteration mode (beyond the reference): run EXACTLY

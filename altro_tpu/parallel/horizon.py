@@ -1,10 +1,10 @@
 """Sequence-parallel Riccati: block-partition the horizon across devices.
 
-The pod-scale long-horizon option (SURVEY §5 "long-context"): the
+The multi-device long-horizon option (SURVEY §5 "long-context"): the
 value-function elements of the parallel Riccati construction
 (altro_tpu.tvlqr) are sharded over a 'horizon' mesh axis; each device
 suffix-scans its block locally, block aggregates are exchanged with one
-`all_gather` over ICI (5 small matrices per device), and the tail
+`all_gather` (5 small matrices per device), and the tail
 composition is applied locally — the classic distributed-scan
 decomposition, O(N/D + log D) depth on D devices.
 
@@ -26,6 +26,11 @@ __all__ = [
     "tvlqr_backward_horizon_sharded",
     "tvlqr_backward_batch_horizon_sharded",
 ]
+
+# _PRECISION_NOTE: the block compositions chain (I + C J)^-1 products of
+# dense small matrices, and their f32 error compounds over the horizon. A
+# GPU may run an f32 product at DEFAULT precision in TF32 (10-bit
+# mantissa), so the sharded passes trace their products at "highest".
 
 
 def _identity_element(n, dtype):
@@ -190,9 +195,10 @@ def tvlqr_backward_horizon_sharded(
         out_specs=(spec, spec, spec, spec, P(), P(), spec),
         check_vma=False,
     ))
-    K_f, d_f, P_full, p_full, dV, ok_all, ok_rows = mapped(
-        A_p, B_p, f_p, lxx, luu_p, lux_p, lx, lu_p, is_term
-    )
+    with jax.default_matmul_precision("highest"):  # see _PRECISION_NOTE
+        K_f, d_f, P_full, p_full, dV, ok_all, ok_rows = mapped(
+            A_p, B_p, f_p, lxx, luu_p, lux_p, lx, lu_p, is_term
+        )
     K = K_f[:N]
     d = d_f[:N]
     ok = ok_all.astype(bool)
@@ -208,8 +214,8 @@ def tvlqr_backward_batch_horizon_sharded(
 ) -> TVLQRGains:
     """2-D-sharded batched Riccati backward pass: independent problem
     lanes over the mesh's `batch_axis`, each lane's horizon
-    block-partitioned over `axis` (the full pod layout: lanes ride one
-    ICI dimension, the distributed-scan exchanges ride the other).
+    block-partitioned over `axis` (lanes ride one mesh axis, the
+    distributed-scan exchanges ride the other).
 
     Args are the batched stacks (A: [Bsz, N, n, n], ..., lx: [Bsz, N+1, n]);
     the batch mesh axis size must divide Bsz, the horizon axis size must
@@ -253,9 +259,10 @@ def tvlqr_backward_batch_horizon_sharded(
         out_specs=(bh, bh, bh, bh, P(batch_axis), P(batch_axis), bh),
         check_vma=False,
     ))
-    K_f, d_f, P_full, p_full, dV, ok_all, ok_rows = mapped(
-        A_p, B_p, f_p, lxx, luu_p, lux_p, lx, lu_p, is_term
-    )
+    with jax.default_matmul_precision("highest"):  # see _PRECISION_NOTE
+        K_f, d_f, P_full, p_full, dV, ok_all, ok_rows = mapped(
+            A_p, B_p, f_p, lxx, luu_p, lux_p, lx, lu_p, is_term
+        )
     K = K_f[:, :N]
     d = d_f[:, :N]
     ok = ok_all.astype(bool)

@@ -1,12 +1,14 @@
-"""Multi-chip scale-out: shard batched solves over a device mesh.
+"""Multi-device scale-out: shard batched solves over a device mesh.
 
 Batched MPC solves are embarrassingly parallel across scenario lanes, so
-the sharding story is: lay the batch axis over the mesh's 'batch' axis
-(ICI within a slice, DCN across hosts via jax.distributed.initialize),
-run whole vmapped solves per device with `shard_map`, and use collectives
-only for the aggregate solve statistics (a `psum`/`pmax` reduction).
+the sharding story is: lay the batch axis over a flat 1-D 'batch' mesh
+axis (the GPUs of a host reach each other all to all over NVLink, so the
+mesh follows the algorithm alone; across hosts via
+jax.distributed.initialize), run whole vmapped solves per device with
+`shard_map`, and use collectives only for the aggregate solve
+statistics (a `psum`/`pmax` reduction, which XLA hands to NCCL).
 Scaling is near-linear by construction — this underpins the
-solves/s/chip north-star metric (BASELINE.json).
+solves/s-per-card north-star metric (BASELINE.json).
 """
 
 from __future__ import annotations
@@ -29,11 +31,11 @@ __all__ = ["initialize_distributed", "make_mesh", "sharded_tracking_solver"]
 def initialize_distributed(coordinator_address=None, num_processes=None, process_id=None):
     """Multi-host setup: call once per host before building a mesh.
 
-    Thin wrapper over `jax.distributed.initialize` (args auto-detected on
-    Cloud TPU pods). After this, `make_mesh()` spans all hosts' devices;
-    the batch axis rides ICI within a slice and DCN across hosts, and the
-    solver's only cross-host traffic is the aggregate-stats reduction —
-    scaling is near-linear by construction.
+    Thin wrapper over `jax.distributed.initialize`; pass the coordinator
+    address (`host:port`), the process count and this process's id —
+    nothing detects them. After this, `make_mesh()` spans all hosts'
+    devices and the solver's only cross-host traffic is the
+    aggregate-stats reduction — scaling is near-linear by construction.
     """
     kwargs = {}
     if coordinator_address is not None:
@@ -65,7 +67,7 @@ def sharded_tracking_solver(
     state_batch) -> (u0, state', stats, agg) where B must divide the mesh
     size; each device runs B/n_dev whole solves locally; `agg` is a
     replicated dict of cross-device aggregates (max feasibility /
-    stationarity, mean iterations, success count) reduced over ICI.
+    stationarity, mean iterations, success count) reduced by collectives.
     """
     if not isinstance(problem.cost, DiagonalCost):
         raise TypeError("sharded_tracking_solver requires a DiagonalCost")

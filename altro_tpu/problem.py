@@ -1,6 +1,6 @@
 """Problem definition: costs, constraints, dynamics.
 
-TPU-native redesign of the reference's per-knot `KnotPointData` problem
+Batched redesign of the reference's per-knot `KnotPointData` problem
 storage (/root/reference/src/altro/solver/knotpoint_data.hpp:160-233):
 instead of an array-of-structs with per-knot Eigen workspaces, the problem
 is a struct-of-arrays pytree — cost terms stacked `[N+1, ...]` along the
@@ -254,12 +254,11 @@ class ConstraintSpec:
     # (tvlqr.cpp:85-89,125-128) extended to the AL Hessian.
     diag_hessian: bool = False
     # Declares c(x, u, k) AFFINE in (x, u) at every knot (bound / box /
-    # linear-halfspace constraints). Lets the packed trial-rollout
-    # Pallas kernel (ops/pallas_rollout.py) evaluate the AL merit term
+    # linear-halfspace constraints). Lets the tiled trial-rollout GPU
+    # kernel (ops/pallas_rollout_tiled.py) evaluate the AL merit term
     # in-kernel from per-knot coefficient rows extracted once at trace
-    # time, so constrained single-lane solves keep the fast-path grid
-    # (round-5 VERDICT item 2: the reference pays zero structural cost
-    # for constraints in its solve loop, solver.cpp:285-316).
+    # time (the reference pays zero structural cost for constraints in
+    # its solve loop, solver.cpp:285-316).
     affine: bool = False
 
     def jacobian(self, x, u, k):
@@ -308,22 +307,13 @@ class Problem:
     A: Optional[jnp.ndarray] = None
     B: Optional[jnp.ndarray] = None
     f_aff: Optional[jnp.ndarray] = None
-    # Opt-in tile-form dynamics step for the packed trial-rollout Pallas
-    # kernel (models/tile_steps.py protocol): step(x[S, n], u[S, m],
-    # h[S, 1]) -> x_next[S, n], row-wise equal to
-    # `dynamics(x, u, h, k)` for every k. When set (and the problem is
-    # unconstrained with a DiagonalCost), single-lane TPU f32 solves run
-    # the line-search trial grid inside one Pallas program
-    # (ops/pallas_rollout.py) instead of W sequential-scan rollouts.
-    dynamics_tile: Optional[Callable[..., jnp.ndarray]] = None
-    # Column-form twin (models/tile_steps.py):
+    # Opt-in column-form dynamics step (models/tile_steps.py):
     # step(x_cols, u_cols, h) -> x_next_cols on tuples of per-component
-    # arrays (each broadcast-compatible — (8, 128) lane tiles in the
-    # batched rollout kernel). When set, tile-resident batched solves
-    # (tile_solver.solve_tiled) run the line-search trial grid inside
-    # one Pallas program (ops/pallas_rollout_tiled.py) instead of a
-    # knot-sequential XLA scan — the dominant per-iteration cost at the
-    # headline shapes (docs/PERF.md round 5 stage attribution).
+    # arrays (each broadcast-compatible — lane vectors in the batched
+    # rollout kernel), component-wise equal to `dynamics(x, u, h, k)`.
+    # When set, tile-resident batched solves (tile_solver.solve_tiled)
+    # on a GPU run the line-search trial grid inside one kernel
+    # (ops/pallas_rollout_tiled.py) instead of a knot-sequential scan.
     dynamics_cols: Optional[Callable[..., tuple]] = None
 
     @property
@@ -367,6 +357,5 @@ class Problem:
 _register(
     Problem,
     ["cost", "h", "x0", "A", "B", "f_aff", "constraints"],
-    ["N", "n", "m", "dynamics", "dynamics_jac", "dynamics_tile",
-     "dynamics_cols"],
+    ["N", "n", "m", "dynamics", "dynamics_jac", "dynamics_cols"],
 )

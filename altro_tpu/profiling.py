@@ -2,7 +2,7 @@
 
 The reference times MPC loops ad hoc with chrono
 (bicycle_test.cpp:301,338-342) and never populates its stats' solve_time.
-This module provides the TPU equivalents (SURVEY §5): a
+This module provides the JAX equivalents (SURVEY §5): a
 block_until_ready timing harness reporting solves/s and latency
 percentiles, and an optional `jax.profiler` trace context.
 """

@@ -8,14 +8,12 @@ so ticks with no failures pay nothing. Healthy lanes keep their primary
 state bit-for-bit (per-lane merge); rescued lanes carry the rescued
 state forward, which also kills closed-loop failure cascades.
 
-Measured on the headline Scotty workload (B=2048, 200 ticks, TPU v5e;
-docs/PERF.md round 5 + cont.): 98.55% -> 99.62% per-resolve success at
-3.03M resolves/s (rescue budget 10, unlimited recovery, batched
-rollout kernel era; the tail saturates at ~99.65% by budget 12).
-Failures
-cluster per tick (168/200 ticks have none), which is what makes the
-cond gating effective; per-lane compaction does NOT apply (the hard
-ticks fail on most or all lanes at once — see the PERF analysis).
+On the headline Scotty workload (B=2048, 200 ticks, f32) the rescue
+lifts per-resolve success from ~98.5% to ~99.6% (rescue budget 10,
+unlimited recovery; the tail saturates by budget 12). Failures cluster
+per tick (most ticks have none), which is what makes the cond gating
+effective; per-lane compaction does NOT apply (the hard ticks fail on
+most or all lanes at once).
 
 Reference oracle being chased: the C++ reference converges 200/200
 resolves on its single-lane f64 MPC trace at an 80-iteration budget

@@ -1,4 +1,4 @@
-"""Fused AL-iLQR solve: the TPU-native solver core.
+"""Fused AL-iLQR solve: the jittable solver core.
 
 Redesign of the reference solver engine
 (/root/reference/src/altro/solver/solver.cpp:116-511). Structure map:
@@ -44,7 +44,6 @@ from altro_tpu.linesearch import (
 )
 from altro_tpu.options import SolverOptions, Verbosity
 from altro_tpu.problem import DiagonalCost, Problem
-from altro_tpu.platform import debug_callback, debug_print
 from altro_tpu.status import LineSearchCode, SolveStatus
 from altro_tpu.tvlqr import TVLQRGains, tvlqr_backward, tvlqr_backward_associative
 
@@ -626,42 +625,11 @@ def backward_adaptive(opts: SolverOptions, A, B, lxx, luu, lux, lx, lu, reg0):
     """Riccati backward pass with the adaptive-regularization retry."""
     f_zero = jnp.zeros_like(lx[: A.shape[0]])
 
-    if opts.pallas_backward and (opts.parallel_riccati or opts.symmetrize_ctg):
-        raise ValueError(
-            "pallas_backward is mutually exclusive with parallel_riccati "
-            "and symmetrize_ctg (the fused kernel implements the plain "
-            "serial recursion); disable one of them"
-        )
-    if opts.pallas_backward:
-        # custom_vmap: the serial scan unbatched, the fused Pallas kernel
-        # when this solve is vmapped over a (1024-multiple, f32, TPU)
-        # batch — see ops/fused_backward.py
-        from altro_tpu.ops.fused_backward import tvlqr_backward_fused
-
-        def attempt(reg):
-            return tvlqr_backward_fused(A, B, f_zero, lxx, luu, lux, lx, lu, reg)
-    elif opts.parallel_riccati:
+    if opts.parallel_riccati:
         def attempt(reg):
             return tvlqr_backward_associative(
                 A, B, f_zero, lxx, luu, lux, lx, lu, reg,
                 chunk=opts.parallel_riccati_chunk or None,
-            )
-    elif opts.pallas_latency_backward:
-        # Single-lane packed kernel when this trace is unbatched on TPU
-        # (f32 at block sizes packed_supported accepts: m <= 8 and the
-        # row-grouped fields fit one 128-lane tile — covers the whole
-        # model zoo incl. the quadrotor's n=12/m=4, on-device-tested in
-        # tests/tpu/test_on_device.py); the custom_vmap fallback is
-        # exactly the scan below, so this branch never changes semantics
-        # — only latency.
-        from altro_tpu.ops.packed_backward import tvlqr_backward_latency
-
-        def attempt(reg):
-            # f=None: defect-free iLQR expansions — the packed kernel
-            # statically elides the P⁺f products (~n MACs/knot)
-            return tvlqr_backward_latency(
-                A, B, None, lxx, luu, lux, lx, lu, reg,
-                symmetrize=opts.symmetrize_ctg,
             )
     else:
         def attempt(reg):
@@ -741,13 +709,11 @@ def solve(problem: Problem, state: SolverState, opts: SolverOptions = SolverOpti
     # Diagonal expansion storage on the DEFAULT (scan) path: when the AL
     # Hessian is provably diagonal, store [N+1, n] diagonals and run the
     # diag Riccati step — the reference's is_diag fast path
-    # (tvlqr.cpp:85-89,125-128). The batch-major fused kernel
-    # (pallas_backward) and the parallel Riccati keep dense operands
-    # (their ABIs are dense); the tiled paths handle diag themselves.
+    # (tvlqr.cpp:85-89,125-128). The parallel Riccati keeps dense
+    # operands (its ABI is dense); the tiled path handles diag itself.
     diag_mode = (
         opts.diag_expansion
         and al.diag_expansion_eligible(problem)
-        and not opts.pallas_backward
         and not opts.parallel_riccati
         and not opts.exact_al_hessian  # exact Hessians are dense
     )
@@ -766,29 +732,8 @@ def solve(problem: Problem, state: SolverState, opts: SolverOptions = SolverOpti
     convals0 = _trajectory_convals(problem, x_init, state.u)
     A0, B0 = dynamics_expansions(problem, x_init, state.u)
 
-    # Affine-constraint coefficient stacks for the packed trial-rollout
-    # kernel (loop-invariant; extracted once here so the while_loop body
-    # closes over constants). None when any group is ineligible — the
-    # grid then falls back to the constraint-general scan rollout.
-    rollout_con = None
-    if (
-        opts.pallas_rollout
-        and problem.dynamics_tile is not None
-        and isinstance(problem.cost, DiagonalCost)
-        and problem.constraints
-    ):
-        from altro_tpu.ops.pallas_rollout import (
-            affine_constraint_stacks,
-            rollout_constraints_eligible,
-        )
-
-        if rollout_constraints_eligible(problem):
-            _ax, _au, _g, _act = affine_constraint_stacks(problem)
-            rollout_con = (_ax * _act[..., None], _au * _act[..., None],
-                           _g, _act)
-
     if opts.verbose > Verbosity.SILENT:  # solver.cpp:438-441
-        debug_print(
+        jax.debug.print(
             "STARTING ALTRO iLQR SOLVE....\n  Initial Cost: {c}",
             c=al_total_cost(problem, x_init, state.u, state.z, rho0),
         )
@@ -912,50 +857,7 @@ def solve(problem: Problem, state: SolverState, opts: SolverOptions = SolverOpti
                                 gains.d, gains.P, gains.p, c.z, c.rho, alpha,
                             )
 
-                        # Packed trial-rollout kernel (opt-in through
-                        # Problem.dynamics_tile): the whole grid in ONE
-                        # Pallas program, trials on sublanes. Same
-                        # (phi, xstack) carrier as merit_light, so the
-                        # reconstruct path is shared; non-TPU/f64/
-                        # batched traces fall back inside the callable.
-                        # Affine NEGATIVE_ORTHANT constraint groups ride
-                        # the kernel via the AL-term hook (rollout_con).
-                        merit_grid = None
-                        if (
-                            opts.pallas_rollout
-                            and problem.dynamics_tile is not None
-                            and isinstance(problem.cost, DiagonalCost)
-                            and (not problem.constraints
-                                 or rollout_con is not None)
-                        ):
-                            from altro_tpu.ops.pallas_rollout import (
-                                make_trial_grid_rollout,
-                            )
-
-                            _P_con = sum(
-                                spec.dim for spec in problem.constraints)
-                            _grid = make_trial_grid_rollout(
-                                problem.dynamics_tile, n_con=_P_con)
-                            _cost = problem.cost
-
-                            def merit_grid(alphas, c=c, gains=gains):
-                                args = (
-                                    alphas, problem.x0, c.x, c.u,
-                                    gains.K, gains.d, _cost.Q, _cost.q,
-                                    _cost.R, _cost.r, _cost.c, problem.h,
-                                )
-                                if _P_con:
-                                    axm, aum, g_raw, act = rollout_con
-                                    cz = jnp.concatenate(c.z, axis=1)
-                                    args = args + (
-                                        c.rho * axm,
-                                        c.rho * aum,
-                                        (cz - c.rho * g_raw) * act,
-                                        1.0 / (2.0 * c.rho),
-                                    )
-                                return _grid(*args)
                     else:
-                        merit_grid = None
 
                         def merit_light(alpha):
                             out = merit_rollout_light(
@@ -976,7 +878,6 @@ def solve(problem: Problem, state: SolverState, opts: SolverOptions = SolverOpti
                         width=opts.ls_parallel_width,
                         armijo_only=opts.ls_armijo_only,
                         reconstruct=reconstruct,
-                        merit_grid=merit_grid,
                         best_decrease_fallback=opts.ls_best_decrease_fallback,
                     )
                 else:
@@ -1174,11 +1075,11 @@ def solve(problem: Problem, state: SolverState, opts: SolverOptions = SolverOpti
         stop = jnp.logical_or(stop, diverged)
 
         if opts.iteration_callback is not None:
-            debug_callback(
+            jax.debug.callback(
                 opts.iteration_callback, c.iter, m.phi, stat, feas, alpha, c.rho
             )
         if opts.verbose >= Verbosity.INNER:
-            debug_print(
+            jax.debug.print(
                 "  iter = {i}, phi = {p0:.6} -> {p:.6}, dphi = {d0:.4} -> {d:.4}, "
                 "alpha = {a:.4}, ls_iter = {li}, stat = {s:.4}, feas = {f:.4}, "
                 "rho = {r:.3}, dual update? {du}",
@@ -1192,7 +1093,7 @@ def solve(problem: Problem, state: SolverState, opts: SolverOptions = SolverOpti
             # prints the same line there, solver.cpp:492-499)
             jax.lax.cond(
                 do_dual,
-                lambda: debug_print(
+                lambda: jax.debug.print(
                     "  outer: iter = {i}, phi = {p:.6}, stat = {s:.4}, "
                     "feas = {f:.4}, rho = {r:.3} -> {rn:.3}",
                     i=c.iter, p=m.phi, s=stat, f=feas, r=c.rho, rn=rho_new,
@@ -1230,7 +1131,7 @@ def solve(problem: Problem, state: SolverState, opts: SolverOptions = SolverOpti
     final = jax.lax.while_loop(cond, body, init)
 
     if opts.verbose > Verbosity.SILENT:  # solver.cpp:507-509
-        debug_print(
+        jax.debug.print(
             "ALTRO SOLVE FINISHED! iterations = {i}, status = {s}",
             i=final.iter, s=final.status,
         )

@@ -1,28 +1,22 @@
 """Natively-batched, tile-resident AL-iLQR solve.
 
-The round-3 performance lever (docs/PERF.md): at headline scale the
-batch-major solve's dominant per-iteration cost is the batch-major ->
-lane-tile relayout of the fused Pallas backward's operands and outputs
-(XLA's slow small-minor-dim transpose path, measured at ~4% of HBM
-bandwidth). Fixing it at the backward boundary alone loses (round 2's
-`pallas_tile_resident`: the K/d/P/p edge conversions recur every
-iteration). This module is the complete fix: the WHOLE iteration —
-expansions, Riccati backward, line-search trial rollouts, accepted-step
-completion, optimality/dual/penalty bookkeeping — runs on lane-tile
-arrays ([Bt, ..., 8, 128]), so the data layout never changes inside the
-solve. Callers convert once per solve, or once per closed-loop MPC run
-by carrying the tiled `SolverState` across ticks (see
-`shift_trajectory_tiled` / bench.py).
+The WHOLE iteration — expansions, Riccati backward, line-search trial
+rollouts, accepted-step completion, optimality/dual/penalty bookkeeping
+— runs on lane-tile arrays ([Bt, ..., 8, 128], ops/tiles.py), so the
+data layout never changes inside the solve. Callers convert once per
+solve, or once per closed-loop MPC run by carrying the tiled
+`SolverState` across ticks (see `shift_trajectory_tiled` / bench.py).
 
 Semantics contract: `solve_tiled(problem_t, prob_axes, state_t, opts)`
 computes the SAME per-lane iterates as `jax.vmap(solve)(...)` with the
 supported options (parallel phase-split x-only grid line search,
-armijo-only acceptance or RTI mode, fused Pallas backward) — verified by
+armijo-only acceptance or RTI mode) — verified by
 tests/test_tile_solver.py against the vmapped reference path. Per-lane
 code (models, costs, cones) never sees the tiles: every per-knot
 computation is lifted with trailing-axis nested vmaps
-(ops/tile_iter.tile_vmap), and the sequential rollouts are lax.scans
-carrying tiled state.
+(ops/tile_iter.tile_vmap), and the sequential pieces are either
+lax.scans carrying tiled state or, on a GPU, the two kernels chosen by
+`select_kernels`.
 
 Reference loop: SolverImpl::Solve (solver.cpp:414-511), natively
 batched; per-lane masking replaces vmap's automatic while_loop batching.
@@ -32,24 +26,23 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Tuple
 
 import jax
 import jax.numpy as jnp
 
 from altro_tpu import al, cones
 from altro_tpu.ops import tile_iter as ti
-from altro_tpu.ops.pallas_riccati import (
-    BATCH_TILE,
-    batch_to_tiles,
-    riccati_backward_pallas_tiled,
-    tiles_to_batch,
+from altro_tpu.ops.pallas_riccati import riccati_backward_pallas_tiled
+from altro_tpu.ops.pallas_rollout_tiled import (
+    rollout_grid_pallas_tiled,
+    rollout_tiled_eligible,
 )
+from altro_tpu.ops.tiles import batch_to_tiles, tiles_to_batch
 from altro_tpu.options import SolverOptions
 from altro_tpu.problem import Problem
 from altro_tpu.solver import SolverState, SolveStats
 from altro_tpu.status import SolveStatus
-from altro_tpu.tvlqr import _unroll
 
 __all__ = [
     "solve_tiled",
@@ -59,10 +52,45 @@ __all__ = [
     "shift_trajectory_tiled",
     "tile_problem",
     "supported_options",
+    "TiledKernels",
+    "select_kernels",
 ]
 
-# Test hook: route the Pallas kernel through the interpreter (CPU).
-_FORCE_INTERPRET = False
+
+class TiledKernels(NamedTuple):
+    """The two knot-sequential pieces of a tiled iteration.
+
+    backward: ops/tile_iter.riccati_backward_tiled's signature.
+    rollout: ops/tile_iter.rollout_grid_tiled's signature.
+    """
+
+    backward: Callable
+    rollout: Callable
+
+
+# Largest state dimension the kernels are compiled for. Both unroll a
+# knot's per-lane algebra into straight-line code (the backward's
+# products are O(n^3) instructions per knot): on an H100, Triton
+# compiles the n=4 backward in 3-6 s and the quadrotor's n=12 one in
+# 869 s, so larger states run the twins.
+KERNEL_MAX_STATE_DIM = 4
+
+
+def select_kernels(platform: str, dtype, n: int) -> TiledKernels:
+    """The one place the tiled solve chooses who runs its recursions.
+
+    On a GPU ("gpu") with float32 data and at most KERNEL_MAX_STATE_DIM
+    states: the compiled Pallas/Triton kernels (ops/pallas_riccati.py,
+    ops/pallas_rollout_tiled.py). Anything else: their plain twins in
+    ops/tile_iter, which XLA compiles. solve_tiled passes
+    `jax.default_backend()`; the rollout kernel further requires
+    `rollout_tiled_eligible`, checked there.
+    """
+    if (platform == "gpu" and jnp.dtype(dtype) == jnp.float32
+            and n <= KERNEL_MAX_STATE_DIM):
+        return TiledKernels(riccati_backward_pallas_tiled,
+                            rollout_grid_pallas_tiled)
+    return TiledKernels(ti.riccati_backward_tiled, ti.rollout_grid_tiled)
 
 
 # ---------------------------------------------------------------------------
@@ -132,7 +160,8 @@ def shift_trajectory_tiled(state_t: SolverState) -> SolverState:
 
 def supported_options(opts: SolverOptions) -> bool:
     """True when `solve_tiled` implements this configuration (the headline
-    batched-MPC configs). Everything else should go through vmap(solve)."""
+    batched-MPC configs). Everything else should go through vmap(solve).
+    Options do not choose kernels: the platform does (`select_kernels`)."""
     ls_ok = opts.rti_mode or (
         opts.parallel_linesearch
         and opts.use_backtracking_linesearch
@@ -282,6 +311,11 @@ def solve_tiled(
     Supported opts: see `supported_options` — the batched-MPC headline
     configurations; call sites must route unsupported configs through
     jax.vmap(solve).
+
+    Platform rule: on a GPU with float32 data and n <= 4 states the
+    Riccati backward and the line-search trial grid run as compiled
+    kernels; elsewhere (the CPU, float64, larger states) as their plain
+    XLA twins (`select_kernels`).
     """
     if not supported_options(opts):
         raise ValueError(
@@ -293,7 +327,11 @@ def solve_tiled(
     dtype = state_t.x.dtype
     z_axes = tuple(True for _ in state_t.z)
     ta = ti.TileArgs(problem_t, prob_axes, z_axes)
-    interpret = _FORCE_INTERPRET
+    kernels = select_kernels(jax.default_backend(), dtype, problem_t.n)
+    backward = kernels.backward
+    grid_rollout = (kernels.rollout
+                    if rollout_tiled_eligible(problem_t, prob_axes)
+                    else ti.rollout_grid_tiled)
     diag = opts.diag_expansion and al.diag_expansion_eligible(problem_t)
     lane_shape = state_t.rho.shape  # [Bt, 8, 128]
 
@@ -317,29 +355,8 @@ def solve_tiled(
     c1 = jnp.asarray(opts.ls_c1, dtype)
     slack = jnp.asarray(opts.ls_armijo_slack, dtype)
 
-    # Batched trial-rollout Pallas kernel (the dominant per-iteration
-    # cost is the knot-sequential scan grid — docs/PERF.md round-5 stage
-    # attribution); scan fallback otherwise.
-    from altro_tpu.ops.pallas_rollout_tiled import (
-        rollout_grid_pallas_tiled,
-        rollout_tiled_eligible,
-    )
-    from altro_tpu.ops.packed_backward import _on_tpu
-
-    use_roll_kernel = (
-        opts.pallas_rollout_tiled
-        and dtype == jnp.float32
-        and (interpret or _on_tpu())
-        and rollout_tiled_eligible(problem_t, prob_axes)
-    )
-
     def _grid_rollout(alphas_w, xc, uc, K, d, z, rho):
-        if use_roll_kernel:
-            return rollout_grid_pallas_tiled(
-                ta, xc, uc, K, d, z, rho, alphas_w, x0_t,
-                interpret=interpret)
-        return ti.rollout_grid_tiled(ta, xc, uc, K, d, z, rho, alphas_w,
-                                     x0_t)
+        return grid_rollout(ta, xc, uc, K, d, z, rho, alphas_w, x0_t)
 
     init = _CarryT(
         x=x_init,
@@ -378,15 +395,15 @@ def solve_tiled(
     def body(c: _CarryT):
         active = lane_active(c)
 
-        # 1-2. Expansions + fused tiled backward with adaptive reg retry
+        # 1-2. Expansions + tiled backward with adaptive reg retry
         lx, lu, lxx, luu, lux, phi0 = ti.cost_expansions_tiled(
             ta, c.x, c.u, c.z, c.rho, diag=diag
         )
 
         def attempt(r_t):
-            return riccati_backward_pallas_tiled(
+            return backward(
                 c.A, c.B, lxx, luu, lx, lu, r_t, lux=lux, diag_cost=diag,
-                symmetrize=opts.symmetrize_ctg, interpret=interpret,
+                symmetrize=opts.symmetrize_ctg,
             )
 
         g, reg_used = ti.retry_tiled(opts, attempt, c.reg)
@@ -399,16 +416,10 @@ def solve_tiled(
         # 4. Line search: parallel x-only grid (or RTI full step)
         if opts.rti_mode:
             one = jnp.asarray(1.0, dtype)
-            if use_roll_kernel:
-                # W=1 grid through the rollout kernel (same program as
-                # the line-search grid; the scan path is the fallback)
-                phi1, xs1 = _grid_rollout(
-                    one[None], c.x, c.u, g.K, g.d, c.z, c.rho)
-                phi_acc, xsel = phi1[0], xs1[0]
-            else:
-                phi_acc, xsel = ti.rollout_phi_x_tiled(
-                    ta, c.x, c.u, g.K, g.d, c.z, c.rho, one, x0_t
-                )
+            # W=1 grid: the same program as the line-search grid
+            phi1, xs1 = _grid_rollout(
+                one[None], c.x, c.u, g.K, g.d, c.z, c.rho)
+            phi_acc, xsel = phi1[0], xs1[0]
             alpha_acc = jnp.full(lane_shape, 1.0, dtype)
             use_ls = jnp.ones(lane_shape, bool)
             ls_failed = jnp.zeros(lane_shape, bool)

@@ -1,6 +1,6 @@
 """Time-varying LQR: Riccati backward pass and affine closed-loop rollout.
 
-TPU-native redesign of the reference TVLQR kernel
+Batched redesign of the reference TVLQR kernel
 (/root/reference/src/tvlqr/tvlqr.cpp:65-248). The reference iterates a
 serial C loop over arrays-of-pointers per knot point; here the problem
 data are struct-of-arrays `[N, ...]` stacks and the recurrences are
@@ -29,7 +29,8 @@ from altro_tpu.ops.smallmat import lu_solve_small, mm, mtm, mtv, mv, psd_solve_s
 
 def _unroll(N: int) -> int:
     """Scan unroll factor: amortize loop bookkeeping over several tiny
-    step bodies (the per-knot blocks are far below TPU op granularity).
+    step bodies (the per-knot blocks are far below an accelerator op's
+    granularity).
     Cap with ALTRO_SCAN_UNROLL (e.g. 1 for fast compiles in test suites)."""
     import os
 
@@ -71,7 +72,7 @@ def tvlqr_backward(A, B, f, lxx, luu, lux, lx, lu, reg=0.0,
     symmetrize: re-symmetrize the cost-to-go each step. Roundoff
     asymmetry compounds over long horizons (material in f32 beyond
     N ~ 100; below test tolerances in f64) but the per-step transposes
-    cost ~40% throughput on TPU at reference scale — so it is opt-in
+    cost throughput at reference scale — so it is opt-in
     (SolverOptions.symmetrize_ctg).
 
     Diagonal-cost fast path (the reference's `is_diag`,
@@ -313,7 +314,7 @@ def tvlqr_backward_associative(A, B, f, lxx, luu, lux, lx, lu, reg=0.0,
 
     Same interface/results as `tvlqr_backward` (to numerical tolerance);
     O(log N) sequential depth, so long horizons parallelize across the
-    TPU's vector lanes / cores instead of serializing the scan.
+    device's lanes / cores instead of serializing the scan.
 
     chunk=None runs the pure associative suffix scan (shortest depth,
     f64-recommended at long horizons); chunk=L runs the two-level

@@ -25,9 +25,6 @@ from altro_tpu.problem import ConstraintSpec, Problem, lqr_cost_from_reference
 
 
 def main():
-    from altro_tpu.platform import ensure_backend
-
-    ensure_backend()
     B = int(os.environ.get("ALTRO_EXAMPLE_B", "64"))
     ticks = int(os.environ.get("ALTRO_EXAMPLE_TICKS", "20"))
     dtype = jnp.float32

@@ -30,11 +30,9 @@ from altro_tpu.io.scotty import synthetic_scotty
 from altro_tpu.models.bicycle import bicycle_continuous
 from altro_tpu.models.integrators import midpoint
 from altro_tpu.options import SolverOptions
-from altro_tpu.platform import ensure_backend
 from altro_tpu.problem import ConstraintSpec, Problem, lqr_cost_from_reference
 from altro_tpu.solver import init_state
 
-ensure_backend()
 
 
 def build_artifact(path: str):
@@ -62,8 +60,8 @@ def build_artifact(path: str):
         parallel_linesearch=True, ls_try_cubic_first=False,
         penalty_warm_start=True, throw_errors=False,
     )
-    # Default platforms=("tpu", "cpu"): one artifact serves on TPU and
-    # falls back to host CPU.
+    # Default platforms=("cuda", "cpu"): one artifact serves on an NVIDIA
+    # GPU and falls back to host CPU.
     art = export_mpc_server(problem, opts, batch=None)
     save_exported(art, path)
     return problem, ref

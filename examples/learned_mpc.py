@@ -56,9 +56,6 @@ def task_loss(log_weights):
 
 
 def main():
-    from altro_tpu.platform import ensure_backend
-
-    ensure_backend()
     import optax
 
     theta = jnp.log(jnp.asarray([1.0, 1.0, 1.0]))

@@ -18,9 +18,6 @@ from altro_tpu.models import midpoint, pendulum_continuous
 
 
 def main():
-    from altro_tpu.platform import ensure_backend
-
-    ensure_backend()
     N, n, m = 50, 2, 1
     tf = 3.0
     xf = np.array([np.pi, 0.0])

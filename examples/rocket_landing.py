@@ -113,17 +113,13 @@ def build_problem(N=60, tf=6.0, dtype=jnp.float64,
 
 
 def main():
-    # Decide the platform BEFORE the first jax call: jax_enable_x64 set
-    # after backend init is silently ignored (arrays stay f32 and the
-    # 1e-4 tolerances become unreachable).
-    from bench import pick_platform
-
-    on_tpu = pick_platform() != "cpu"
-    if not on_tpu:
-        jax.config.update("jax_platforms", "cpu")
-        jax.config.update("jax_enable_x64", True)  # real f64 on CPU
-    dtype = jnp.float32 if on_tpu else jnp.float64
-    tol = 1e-3 if on_tpu else 1e-4  # reference default (solver_options.hpp:19-22)
+    # The observed platform decides the precision: f32 on a GPU, real f64
+    # on the CPU (set before any array is made, so every array is f64).
+    on_gpu = jax.default_backend() == "gpu"
+    if not on_gpu:
+        jax.config.update("jax_enable_x64", True)
+    dtype = jnp.float32 if on_gpu else jnp.float64
+    tol = 1e-3 if on_gpu else 1e-4  # reference default (solver_options.hpp:19-22)
 
     problem, hover = build_problem(dtype=dtype)
     # Relative KKT stationarity: the rocket's cost gradients are O(1e3)

@@ -1,5 +1,5 @@
 // altro_tpu native runtime: allocation-free TVLQR kernel + cubic line-search
-// core for the latency-critical single-solve host path (the TPU framework's
+// core for the latency-critical single-solve host path (the JAX framework's
 // answer to the reference's embedded/Teensy deployment target,
 // /root/reference/src/tvlqr/tvlqr.cpp — re-implemented self-contained,
 // dependency-free, row-major, no Eigen).

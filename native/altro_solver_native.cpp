@@ -1,7 +1,7 @@
 // altro_tpu native runtime, part 2: the FULL single-solve AL-iLQR engine
 // in dependency-free C++ — the embedded/host deployment surface (the
 // reference ships its whole solver to Teensy-class targets; this is the
-// TPU framework's equivalent). Diagonal costs, user dynamics/constraint
+// JAX framework's equivalent). Diagonal costs, user dynamics/constraint
 // callbacks, conic constraints (equality / inequality / second-order
 // cone), projected-dual augmented Lagrangian, strong-Wolfe cubic line
 // search with backtracking fallback, adaptive regularization.

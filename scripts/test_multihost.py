@@ -2,9 +2,9 @@
 
 Launches NPROC processes, each with 4 virtual CPU devices, connected via
 jax.distributed.initialize over localhost — the same mechanism a real
-multi-host TPU pod uses (DCN coordination + a global mesh). Each process
+multi-host deployment uses (coordinator + a global mesh). Each process
 holds its shard of a batched tracking solve; process 0 checks the
-ICI/DCN-reduced aggregate stats.
+cross-process reduced aggregate stats.
 
 Usage: python scripts/test_multihost.py            (parent; spawns workers)
 """

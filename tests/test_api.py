@@ -248,12 +248,15 @@ def test_max_solve_time_budget():
 
 
 def test_set_tile_dynamics_fast_path_matches_plain():
-    """ALTROSolver.set_tile_dynamics: the packed trial-rollout fast path
-    (scan fallback on CPU) through the facade + affine input bounds from
-    set_input_bounds must reproduce the plain path's solve."""
+    """ALTROSolver.set_tile_dynamics: the column-form step for the tiled
+    trial-rollout kernel, through the facade + affine input bounds from
+    set_input_bounds; the problem becomes kernel-eligible and the
+    facade's solve is unchanged."""
+    import dataclasses
+
     from altro_tpu.models.pendulum import pendulum_continuous
     from altro_tpu.models.integrators import midpoint
-    from altro_tpu.models.tile_steps import midpoint_tile, pendulum_tile
+    from altro_tpu.models.tile_steps import midpoint_cols, pendulum_cols
 
     N, n, m = 30, 2, 1
     dyn = midpoint(pendulum_continuous())
@@ -273,7 +276,7 @@ def test_set_tile_dynamics_fast_path_matches_plain():
         s.set_input_bounds(u_lo=[-6.0], u_hi=[6.0])
         s.set_initial_state(np.zeros(n))
         if with_tile:
-            s.set_tile_dynamics(midpoint_tile(pendulum_tile()))
+            s.set_tile_dynamics(midpoint_cols(pendulum_cols()))
         s.initialize()
         s.set_input(np.full((m,), 0.1), 0, N)
         s.set_options(opts)
@@ -281,10 +284,16 @@ def test_set_tile_dynamics_fast_path_matches_plain():
 
     s_plain = build(False)
     s_tile = build(True)
-    assert s_tile.problem.dynamics_tile is not None
+    assert s_tile.problem.dynamics_cols is not None
     # bound setters must have declared the affine fast-path eligibility
-    from altro_tpu.ops.pallas_rollout import rollout_constraints_eligible
-    assert rollout_constraints_eligible(s_tile.problem)
+    from altro_tpu.ops.pallas_rollout_tiled import rollout_tiled_eligible
+
+    unbatched = dataclasses.replace(
+        s_tile.problem,
+        constraints=tuple(dataclasses.replace(c, active=False)
+                          for c in s_tile.problem.constraints))
+    assert rollout_tiled_eligible(s_tile.problem, unbatched)
+    assert not rollout_tiled_eligible(s_plain.problem, unbatched)
     st0 = s_plain.solve()
     st1 = s_tile.solve()
     assert st0 == st1

@@ -11,6 +11,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from altro_tpu.cones import Cone
 from altro_tpu.export import (
@@ -127,12 +128,14 @@ def test_export_batched_shapes_and_finiteness(tmp_path):
     assert np.isfinite(np.asarray(u0)).all()
 
 
-def test_export_multiplatform_artifact_declares_tpu_and_cpu():
+def test_export_multiplatform_artifact_declares_cuda_and_cpu():
+    """The default artifact is cross-lowered for the GPU from this CPU
+    process (the exported step is plain XLA, no platform-dependent
+    kernel), and it still executes on the CPU backend."""
     problem, _ = _bicycle_problem(N=5)
     opts = SolverOptions(iterations_max=2, use_backtracking_linesearch=True, throw_errors=False)
-    art = export_mpc_server(problem, opts, batch=None)  # default ("tpu", "cpu")
-    assert set(art.platforms) == {"tpu", "cpu"}
-    # and it still executes on the CPU backend of this process
+    art = export_mpc_server(problem, opts, batch=None)  # default ("cuda", "cpu")
+    assert set(art.platforms) == {"cuda", "cpu"}
     args = [jnp.zeros((problem.n,), problem.dtype()),
             jnp.zeros((problem.N + 1, problem.n), problem.dtype()),
             jnp.zeros((problem.N + 1, problem.m), problem.dtype()),
@@ -141,19 +144,19 @@ def test_export_multiplatform_artifact_declares_tpu_and_cpu():
     assert u0.shape == (problem.m,)
 
 
-def test_tpu_only_export_warns_when_traced_off_tpu():
-    """ADVICE r3: a platforms=('tpu',) artifact traced on a non-TPU
-    process silently bakes the scan path in (trace-time kernel
-    dispatch); export_mpc_server must surface that."""
-    import warnings
+@pytest.mark.parametrize("batch", [None, 4])
+def test_cuda_only_export_cross_lowers_on_cpu(batch):
+    """A platforms=("cuda",) artifact — what serves on the card — lowers
+    from a CPU-only process, single-controller and batched; its
+    serialized form round-trips."""
+    from jax import export as jax_export
 
-    problem, ref = _bicycle_problem()
-    opts = SolverOptions(
-        iterations_max=3, use_backtracking_linesearch=True,
-        throw_errors=False, pallas_latency_backward=True,
-    )
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        export_mpc_server(problem, opts, batch=None, platforms=("tpu",))
-    msgs = [str(w.message) for w in caught if w.category is RuntimeWarning]
-    assert any("packed latency kernel will NOT" in m for m in msgs), msgs
+    problem, _ = _bicycle_problem(N=5)
+    opts = SolverOptions(iterations_max=2, use_backtracking_linesearch=True,
+                         throw_errors=False)
+    art = export_mpc_server(problem, opts, batch=batch, platforms=("cuda",))
+    assert art.platforms == ("cuda",)
+    back = jax_export.deserialize(art.serialize())
+    assert back.platforms == ("cuda",)
+    assert back.in_avals == art.in_avals
+

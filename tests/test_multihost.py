@@ -2,8 +2,8 @@
 
 Wraps scripts/test_multihost.py in the suite: two OS processes, each
 with 4 virtual CPU devices, joined by jax.distributed.initialize over
-localhost — the same DCN-coordination + global-mesh mechanism a real
-multi-host TPU pod uses (the reference has no distributed layer to
+localhost — the same coordinator + global-mesh mechanism a real
+multi-host deployment uses (the reference has no distributed layer to
 match; its batch story is single-process, SURVEY §2.3). Opt-in because
 it spawns interpreters and binds a localhost port:
 

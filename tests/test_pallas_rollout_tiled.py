@@ -1,11 +1,12 @@
-"""Batched tiled trial-rollout Pallas kernel vs the XLA scan grid.
+"""Batched tiled trial-rollout GPU kernel vs the XLA scan grid.
 
-The kernel (ops/pallas_rollout_tiled.py) must reproduce
-ops/tile_iter.rollout_grid_tiled — phi and the rolled-out state stacks
-— to f32 roundoff, including active affine NEGATIVE_ORTHANT constraint
-groups with nonzero duals and per-lane penalties, and end-to-end
-through solve_tiled. Runs in interpret mode on CPU; the compiled twin
-is in tests/tpu/test_on_device.py.
+The kernel (ops/pallas_rollout_tiled.py, Pallas through Triton) must
+reproduce ops/tile_iter.rollout_grid_tiled — phi and the rolled-out
+state stacks — to f32 roundoff, including active affine
+NEGATIVE_ORTHANT constraint groups with nonzero duals and per-lane
+penalties, and end-to-end through solve_tiled. Runs in the Pallas
+interpreter on CPU; the compiled kernel is checked on the card by
+chip_smoke.py and tests/gpu.
 """
 
 import dataclasses
@@ -21,7 +22,8 @@ from altro_tpu.models.bicycle import bicycle_continuous
 from altro_tpu.models.integrators import midpoint
 from altro_tpu.models.tile_steps import bicycle_cols, midpoint_cols
 from altro_tpu.ops import tile_iter as ti
-from altro_tpu.ops.pallas_riccati import batch_to_tiles
+from altro_tpu.ops.tiles import batch_to_tiles
+from altro_tpu.ops import pallas_rollout_tiled as prt
 from altro_tpu.ops.pallas_rollout_tiled import (
     rollout_grid_pallas_tiled,
     rollout_tiled_eligible,
@@ -116,8 +118,11 @@ def test_kernel_matches_scan_grid(constrained):
         np.asarray(xs_k), np.asarray(xs_s), rtol=2e-5, atol=1e-5)
 
 
-def test_kernel_chunked_matches_scan(monkeypatch):
-    monkeypatch.setenv("ALTRO_ROLLOUT_TILED_CHUNK", "3")
+@pytest.mark.parametrize("lanes", [32, 64])
+def test_kernel_lane_blocks_match_scan(monkeypatch, lanes):
+    """Smaller lane blocks than the default: every program's block index
+    maps to its own lanes of the (8, 128) tile."""
+    monkeypatch.setattr(prt, "LANES_PER_PROGRAM", lanes)
     problem = _problem(constrained=True)
     x_t, u_t, K_t, d_t, z_t, rho_t, x0_t = _tiled_inputs(problem, seed=5)
     ta, prob_axes = _ta(problem)
@@ -132,6 +137,72 @@ def test_kernel_chunked_matches_scan(monkeypatch):
         np.asarray(phi_k), np.asarray(phi_s), rtol=2e-5, atol=1e-4)
     np.testing.assert_allclose(
         np.asarray(xs_k), np.asarray(xs_s), rtol=2e-5, atol=1e-5)
+
+
+def test_kernel_batched_cost_leaves_match_scan():
+    """Per-lane (tiled) cost rows and time steps are loaded as lane rows
+    instead of shared scalars — same values as the scan grid."""
+    problem = _problem(constrained=True)
+    x_t, u_t, K_t, d_t, z_t, rho_t, x0_t = _tiled_inputs(problem, seed=2)
+    rng = np.random.default_rng(4)
+
+    def lanes(leaf, scale):
+        b = np.asarray(leaf)[None] * (1.0 + scale * rng.random(
+            (B,) + np.shape(leaf)))
+        return batch_to_tiles(jnp.asarray(b, DT))
+
+    cost = problem.cost
+    cost_t = dataclasses.replace(cost, Q=lanes(cost.Q, 0.5),
+                                 q=lanes(cost.q, 0.5), c=lanes(cost.c, 0.5))
+    problem_t = dataclasses.replace(problem, cost=cost_t, x0=x0_t,
+                                    h=lanes(problem.h, 0.2))
+    _, prob_axes = _ta(problem)
+    prob_axes = dataclasses.replace(
+        prob_axes, cost=dataclasses.replace(prob_axes.cost, Q=True, q=True,
+                                            c=True), h=True)
+    ta = ti.TileArgs(problem_t, prob_axes, (True,))
+    alphas = jnp.asarray([1.0, 0.25], DT)
+    phi_s, xs_s = ti.rollout_grid_tiled(
+        ta, x_t, u_t, K_t, d_t, z_t, rho_t, alphas, x0_t)
+    phi_k, xs_k = rollout_grid_pallas_tiled(
+        ta, x_t, u_t, K_t, d_t, z_t, rho_t, alphas, x0_t, interpret=True)
+    np.testing.assert_allclose(
+        np.asarray(phi_k), np.asarray(phi_s), rtol=2e-5, atol=1e-4)
+    np.testing.assert_allclose(
+        np.asarray(xs_k), np.asarray(xs_s), rtol=2e-5, atol=1e-5)
+
+
+def test_kernel_quadrotor_matches_scan():
+    """n=12 / m=4 (RK4 quadrotor, unconstrained) — the register-heavy
+    block size."""
+    import chip_smoke
+
+    ta, (x, u, K, d, z, rho, alphas, x0) = chip_smoke.rollout_case(
+        B, 12, 4, N=3)
+    phi_s, xs_s = ti.rollout_grid_tiled(ta, x, u, K, d, z, rho, alphas[:2], x0)
+    phi_k, xs_k = rollout_grid_pallas_tiled(
+        ta, x, u, K, d, z, rho, alphas[:2], x0, interpret=True)
+    np.testing.assert_allclose(
+        np.asarray(phi_k), np.asarray(phi_s), rtol=2e-5, atol=1e-4)
+    np.testing.assert_allclose(
+        np.asarray(xs_k), np.asarray(xs_s), rtol=2e-5, atol=1e-5)
+
+
+def test_kernel_lowers_for_cuda():
+    """The kernel (user dynamics, AL term, shared scalar loads) lowers to
+    a Triton call for CUDA from this CPU process."""
+    problem = _problem(constrained=True)
+    x_t, u_t, K_t, d_t, z_t, rho_t, x0_t = _tiled_inputs(problem)
+    ta, prob_axes = _ta(problem)
+    ta = ti.TileArgs(dataclasses.replace(problem, x0=x0_t), prob_axes,
+                     ta.z_axes)
+    alphas = jnp.asarray(0.5 ** np.arange(8), DT)
+    text = jax.jit(
+        lambda *a: rollout_grid_pallas_tiled(ta, *a)
+    ).trace(x_t, u_t, K_t, d_t, z_t, rho_t, alphas, x0_t).lower(
+        lowering_platforms=("cuda",)).as_text()
+    assert "xla.gpu.triton" in text
+    assert "rollout_grid_tiled" in text
 
 
 def test_eligibility_gates():
@@ -152,12 +223,11 @@ def test_eligibility_gates():
 
 
 @pytest.mark.parametrize("rti", [False, True])
-def test_solve_tiled_kernel_vs_scan(monkeypatch, rti):
+def test_solve_tiled_kernel_vs_scan(interpret_kernels, rti):
     """solve_tiled with the rollout kernel (interpret) must track the
     scan-grid solve_tiled per lane — same contract as the tiled-vs-vmap
     parity (f32 tie flips allowed on a tiny lane fraction). Covers both
     the line-search grid and the RTI (W=1 full-step) kernel branch."""
-    monkeypatch.setattr(tile_solver, "_FORCE_INTERPRET", True)
     problem = _problem(constrained=True)
     rng = np.random.default_rng(1)
     x0b = jnp.asarray(
@@ -191,17 +261,45 @@ def test_solve_tiled_kernel_vs_scan(monkeypatch, rti):
     assert np.mean(lane_err < 1e-4) > 0.99, float(np.mean(lane_err < 1e-4))
 
 
-def test_column_steps_match_per_lane_dynamics():
+def _zoo():
+    from altro_tpu.models.double_integrator import double_integrator_dynamics
+    from altro_tpu.models.integrators import rk4
+    from altro_tpu.models.pendulum import pendulum_continuous
+    from altro_tpu.models.quadrotor import quadrotor_continuous
+    from altro_tpu.models.tile_steps import (
+        double_integrator_cols,
+        pendulum_cols,
+        quadrotor_cols,
+        rk4_cols,
+    )
+
+    return {
+        "bicycle": (4, 2, midpoint(bicycle_continuous()),
+                    midpoint_cols(bicycle_cols())),
+        "pendulum": (2, 1, midpoint(pendulum_continuous()),
+                     midpoint_cols(pendulum_cols())),
+        "double_integrator": (4, 2, double_integrator_dynamics(2),
+                              double_integrator_cols(2)),
+        "quadrotor": (12, 4, rk4(quadrotor_continuous()),
+                      rk4_cols(quadrotor_cols())),
+    }
+
+
+@pytest.mark.parametrize(
+    "model", ["bicycle", "pendulum", "double_integrator", "quadrotor"])
+def test_column_steps_match_per_lane_dynamics(model):
     """The column-form protocol (dynamics_cols) equals the per-lane
-    dynamics component-wise on (8, 128) tiles."""
-    problem = _problem()
+    dynamics component-wise on (8, 128) tiles, for every zoo model."""
+    nn, mm, dyn, cols_step = _zoo()[model]
     rng = np.random.default_rng(7)
-    x = jnp.asarray(0.5 * rng.standard_normal((n, 8, 128)), DT)
-    u = jnp.asarray(0.5 * rng.standard_normal((m, 8, 128)), DT)
-    h = jnp.asarray(0.1, DT)
-    cols = problem.dynamics_cols(tuple(x), tuple(u), h)
-    got = np.stack([np.asarray(c) for c in cols])
+    x = jnp.asarray(0.5 * rng.standard_normal((nn, 8, 128)), DT)
+    u = jnp.asarray(0.5 * rng.standard_normal((mm, 8, 128)), DT)
+    if model == "quadrotor":
+        u = u + 0.5 * 9.81 / 4
+    h = jnp.asarray(0.05, DT)
+    cols = cols_step(tuple(x), tuple(u), h)
+    got = np.stack([np.asarray(jnp.broadcast_to(c, (8, 128))) for c in cols])
     lane = jax.vmap(jax.vmap(
-        lambda xi, ui: problem.dynamics(xi, ui, h, 0),
+        lambda xi, ui: dyn(xi, ui, h, 0),
         in_axes=-1, out_axes=-1), in_axes=-1, out_axes=-1)(x, u)
-    np.testing.assert_allclose(got, np.asarray(lane), rtol=2e-6, atol=1e-6)
+    np.testing.assert_allclose(got, np.asarray(lane), rtol=2e-5, atol=2e-6)

@@ -1,9 +1,10 @@
 """solve_tiled (tile-resident batched solve) vs jax.vmap(solve) parity.
 
 The tiled solve must compute the SAME per-lane iterates as vmapping the
-per-lane solver with the equivalent options. Both sides run their Pallas
-kernels in interpret mode on CPU (f32), so this exercises the exact
-dispatch paths the TPU headline uses. Reference loop: SolverImpl::Solve
+per-lane solver with the equivalent options. The tiled side runs the GPU
+kernels in the Pallas interpreter (f32) — the kernel path the GPU
+headline takes — and, where marked, the plain twins the CPU takes.
+Reference loop: SolverImpl::Solve
 (/root/reference/src/altro/solver/solver.cpp:414-511).
 """
 
@@ -19,7 +20,6 @@ from altro_tpu.cones import Cone
 from altro_tpu.io.scotty import load_scotty, synthetic_scotty
 from altro_tpu.models.bicycle import bicycle_continuous
 from altro_tpu.models.integrators import midpoint
-from altro_tpu.ops import fused_backward
 from altro_tpu.options import SolverOptions
 from altro_tpu.parallel.batch import batch_init_state
 from altro_tpu.problem import ConstraintSpec, Problem, lqr_cost_from_reference
@@ -30,10 +30,21 @@ N, n, m = 12, 4, 2
 DT = jnp.float32
 
 
+_SELECT = tile_solver.select_kernels
+
+
 @pytest.fixture(autouse=True)
-def _interpret_kernels(monkeypatch):
-    monkeypatch.setattr(tile_solver, "_FORCE_INTERPRET", True)
-    monkeypatch.setattr(fused_backward, "_FORCE_INTERPRET", True)
+def _kernels(interpret_kernels):
+    """Every tiled solve here takes the kernel route (interpreted)."""
+
+
+@pytest.fixture(params=["kernels", "twins"])
+def route(request, monkeypatch):
+    """Both routes of the tiled solve: the GPU kernels (interpreted) and
+    the plain twins the CPU runs."""
+    if request.param == "twins":
+        monkeypatch.setattr(tile_solver, "select_kernels", _SELECT)
+    return request.param
 
 
 def _problem():
@@ -89,7 +100,6 @@ def _opts(**kw):
         ls_armijo_only=True,
         ls_grid_x_only=True,
         ls_max_iters=8,
-        pallas_backward=True,
     )
     base.update(kw)
     return SolverOptions(**base)
@@ -201,7 +211,7 @@ def test_parity_full_solver_two_warm_ticks():
         assert agree >= 0.995, f"{name} agreement {agree}"
 
 
-def test_parity_rti_mode():
+def test_parity_rti_mode(route):
     problem, ref = _problem()
     x0b, states = _batched_inputs(problem, ref)
     opts = _opts(rti_mode=True, iterations_max=1, ls_armijo_only=True)
@@ -223,7 +233,7 @@ def test_parity_diag_expansion():
     _assert_stats_match(tv, tt)
 
 
-def test_parity_multiblock_linesearch():
+def test_parity_multiblock_linesearch(route):
     problem, ref = _problem()
     x0b, states = _batched_inputs(problem, ref)
     opts = _opts(ls_max_iters=16)  # 2 blocks of width 8
